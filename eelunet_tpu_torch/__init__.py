@@ -1,9 +1,11 @@
 """eelunet_tpu_torch — the PyTorch + CUDA port of ``eelunet_tpu``.
 
-It serves the flagship EELUnet (binary, BN folded, bf16 compute) on an
-NVIDIA H100. The two FFT high-pass kernels that the JAX package writes in
-Pallas for the TPU are hand-written CUDA C++ kernels here
-(``csrc/highpass.cu``), each with a plain PyTorch twin that runs on the CPU.
+It serves the flagship EELUnet (binary, BN folded, bf16 compute) and trains
+it (bf16 autocast on f32 weights) on an NVIDIA H100. The four FFT high-pass
+kernels that the JAX package writes in Pallas for the TPU, forward and
+backward, are hand-written CUDA C++ kernels here (``csrc/highpass.cu``,
+``csrc/highpass_bwd.cu``), each with a plain PyTorch twin that runs on the
+CPU.
 Modules mirror the JAX package's file names; the public surfaces keep its
 layout (``Predictor`` takes (B,H,W,3) numpy and returns (B,H,W,1)) so the
 two packages can be compared on the same inputs.

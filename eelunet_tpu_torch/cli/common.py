@@ -1,11 +1,16 @@
-"""Shared CLI plumbing: argparse -> TrainConfig with dotted overrides
-(counterpart of ``eelunet_tpu/cli/common.py:14-60``)."""
+"""Shared CLI plumbing: argparse -> TrainConfig with dotted overrides, and
+the datasets and loaders of a config (counterpart of
+``eelunet_tpu/cli/common.py``). ``--device`` is the port's counterpart of
+``JAX_PLATFORMS``: the CLIs run on the CUDA card unless it says "cpu"."""
 
 from __future__ import annotations
 
 import argparse
+from typing import Tuple
 
 from eelunet_tpu_torch.config import TrainConfig, apply_overrides, config_from_json
+from eelunet_tpu_torch.data.dataset import SegmentationFolderDataset, train_val_split
+from eelunet_tpu_torch.data.pipeline import DataLoader
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -23,6 +28,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    "resolves tagged checkpoints")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="dotted config override, e.g. --set model.dtype=bfloat16")
+    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                   help="where to run: the CUDA card (default; raises without one) "
+                   "or, only when asked, the CPU")
     return p
 
 
@@ -46,3 +54,33 @@ def load_config(args) -> TrainConfig:
     if getattr(args, "save_dir", None) is not None:
         ov.append(f"save_dir={args.save_dir}")
     return apply_overrides(cfg, ov)
+
+
+def make_folder_dataset(d, split: str, num_classes: int = 1) -> SegmentationFolderDataset:
+    """Dataset for one split, honouring the uint8 device feed and
+    multi-class id masks."""
+    return SegmentationFolderDataset(
+        d.data_dir, split, d.image_size, d.normalize_mean, d.normalize_std,
+        as_uint8=bool(d.uint8_feed), multiclass=num_classes > 1)
+
+
+def build_loaders(cfg: TrainConfig) -> Tuple[DataLoader, DataLoader, DataLoader]:
+    """train/val/test loaders: the reference's 90/10 split of the train dir
+    and a separate test dir (train.py:255-265). Only the shuffled train
+    loader drops its remainder; val and test cover every sample."""
+    d = cfg.data
+    if d.packed or d.device_cache:
+        raise NotImplementedError("data.packed and data.device_cache are not ported to "
+                                  "eelunet_tpu_torch yet; see ROADMAP.md")
+    num_classes = cfg.model.out_channels
+    full = make_folder_dataset(d, "train", num_classes)
+    test = make_folder_dataset(d, "test", num_classes)
+    seed = cfg.seed if cfg.seed is not None else 0
+    tr_idx, va_idx = train_val_split(len(full), d.val_fraction, seed)
+
+    def mk(ds, idx, shuffle):
+        return DataLoader(ds, d.batch_size, shuffle=shuffle, seed=seed,
+                          drop_remainder=d.drop_remainder and shuffle,
+                          num_workers=d.num_workers, indices=idx)
+
+    return mk(full, tr_idx, True), mk(full, va_idx, False), mk(test, None, False)

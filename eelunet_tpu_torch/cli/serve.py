@@ -104,7 +104,7 @@ def main(argv=None):
     predictor = Predictor(
         cfg.model, checkpoint=args.checkpoint, threshold=args.threshold,
         normalize_mean=tuple(d.normalize_mean), normalize_std=tuple(d.normalize_std),
-        tta=cfg.tta, quantize=args.quantize or None,
+        tta=cfg.tta, quantize=args.quantize or None, device=args.device,
     )
     service = SegmentationService(
         predictor, d.image_size,

@@ -1,0 +1,63 @@
+"""Training entry point (counterpart of ``eelunet_tpu/cli/train.py``;
+reference train.py:217-319).
+
+    python -m eelunet_tpu_torch.cli.train --model_type eelunet --data_dir D \\
+        --image_size 512 --batch_size 8 --set model.dtype=bfloat16
+
+Runs on the CUDA card; ``--device cpu`` is the only way onto the CPU.
+Checkpoints go to ``save_dir/<model>/`` (``train/checkpoint.py``); a best
+tag such as ``checkpoints/eelunet/eelunet_best.npz`` is served with
+``python -m eelunet_tpu_torch.cli.serve --checkpoint`` as it is.
+"""
+
+from __future__ import annotations
+
+import json
+
+from eelunet_tpu_torch.cli.common import base_parser, build_loaders, load_config
+from eelunet_tpu_torch.config import apply_overrides, config_to_json
+
+
+def main(argv=None):
+    p = base_parser("Train segmentation model with edge supervision (PyTorch + CUDA)")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--log_dir", type=str, default=None)
+    p.add_argument("--lambda_edge", type=float, default=None)
+    p.add_argument("--resume", type=str, default=None,
+                   help="full snapshot to resume from ('auto' = the newest)")
+    args = p.parse_args(argv)
+
+    ov = []
+    if args.epochs is not None:
+        ov.append(f"epochs={args.epochs}")
+    if args.lr is not None:
+        ov.append(f"optimizer.lr={args.lr}")
+    if args.log_dir is not None:
+        ov.append(f"log_dir={args.log_dir}")
+    if args.lambda_edge is not None:
+        ov.append(f"loss.lambda_edge={args.lambda_edge}")
+    if args.resume is not None:
+        ov.append(f"resume_from={args.resume}")
+    args.set = list(args.set) + ov
+    cfg = load_config(args)
+
+    from eelunet_tpu_torch.train.trainer import Trainer
+    from eelunet_tpu_torch.utils.seeding import set_seed
+
+    cfg = apply_overrides(cfg, [f"seed={set_seed(cfg.seed)}"])
+    print(config_to_json(cfg))
+    trainer = Trainer(cfg, device=args.device)
+    train_loader, val_loader, test_loader = build_loaders(cfg)
+    print(f"Device: {trainer.device}; criterion: {trainer.loss_name}; "
+          f"{len(train_loader)} steps per epoch", flush=True)
+    trainer.fit(train_loader, val_loader, test_loader)
+    from eelunet_tpu_torch.ops.fft_cuda import LAUNCHES
+
+    # What the run launched of the hand-written high-pass kernels (all 0 on
+    # the CPU, where their plain twins run).
+    print("high-pass kernel launches: " + json.dumps(LAUNCHES), flush=True)
+
+
+if __name__ == "__main__":
+    main()

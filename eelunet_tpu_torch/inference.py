@@ -20,6 +20,7 @@ from eelunet_tpu_torch.registry import (
     create_model,
     model_dtype,
     predict_probabilities,
+    resolve_device,
     seg_probabilities,
 )
 
@@ -82,7 +83,8 @@ class Predictor:
         "auto" ships bfloat16 for bfloat16-compute models (their logits are
         bf16 already); the returned array is float32 either way.
 
-        ``device``: torch device; None = CUDA when available, else CPU.
+        ``device``: torch device; None = "cuda". Without a card that raises
+        a RuntimeError: the CPU is taken only when asked for (``"cpu"``).
         ``mesh`` (multi-device serving) and ``quantize="int8"`` are not
         ported yet and raise NotImplementedError."""
         if mesh is not None:
@@ -93,9 +95,7 @@ class Predictor:
         if quantize == "int8":
             raise NotImplementedError("int8 quantization is not ported yet; see ROADMAP.md")
         self.model_cfg = model_cfg
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = model_dtype(model_cfg)
         self.threshold = threshold
         self.bucket_batches = bucket_batches

@@ -114,7 +114,9 @@ def high_pass_fft(x: torch.Tensor, mask_range: int = 20, impl: str = "auto") -> 
     which launches the CUDA kernels on a CUDA tensor and runs their plain
     twins on a CPU tensor. "lowrank": the plain low-rank formula
     (``ops/fft.py``) on any device, kept as the reference the kernels are
-    compared with."""
+    compared with. Both run their matmuls in float32 inside an autocast
+    region too; under autograd "auto" goes through ``HighPassFunction``
+    (the backward kernels) and "lowrank" through autograd of its ops."""
     if impl in ("auto", "pallas"):
         from eelunet_tpu_torch.ops.fft_cuda import high_pass_fft_cuda
 
@@ -122,7 +124,8 @@ def high_pass_fft(x: torch.Tensor, mask_range: int = 20, impl: str = "auto") -> 
     if impl == "lowrank":
         from eelunet_tpu_torch.ops.fft import high_pass_fft_lowrank
 
-        return high_pass_fft_lowrank(x, mask_range)
+        with torch.autocast(x.device.type, enabled=False):
+            return high_pass_fft_lowrank(x, mask_range)
     raise ValueError(f"unknown highpass_impl {impl!r} (choices: {HIGHPASS_IMPLS})")
 
 

@@ -34,7 +34,13 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     flax's BatchNorm in a bf16 model normalises with f32 statistics and casts
     the result to bf16 (``eelunet_tpu/nn/layers.py:208-226``); this does the
-    same whatever dtype the parameters were cast to."""
+    same whatever dtype the parameters were cast to.
+
+    Train mode is ``nn.BatchNorm2d``'s own, which is what the JAX package's
+    ``_TorchExactBatchNorm`` (``nn/layers.py:98-206``) emulates: batch
+    statistics with the biased variance, running statistics with momentum
+    0.1 (flax's 0.9) and the Bessel-corrected variance. Under bf16 autocast
+    it takes a bf16 input with f32 affine and statistics and returns bf16."""
 
     def __init__(self, num_features: int, device=None, dtype=None):
         super().__init__(num_features, eps=1e-5, device=device, dtype=dtype)

@@ -18,8 +18,9 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -73,6 +74,15 @@ def build(name: str) -> Tuple[Path, float, str]:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Tuple[Path, float, str]]:
+    """``build`` for several sources at once: one nvcc per source, all
+    started together. Returns each name's ``build`` result; raises the first
+    failure after every compile has ended."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {n: pool.submit(build, n) for n in names}
+        return {n: f.result() for n, f in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,5 +1,7 @@
-"""FFT high-pass through the hand-written CUDA kernel pair
-(counterpart of ``eelunet_tpu/ops/fft_pallas.py``'s forward).
+"""FFT high-pass through the hand-written CUDA kernels
+(counterpart of ``eelunet_tpu/ops/fft_pallas.py``).
+
+Forward (``csrc/highpass.cu``):
 
   kernel 1, ``highpass_contract``: T = V_H x per image, as (B, K, W*C) f32
       real and imaginary parts — one read of x, a skinny write.
@@ -9,10 +11,23 @@
       per column in registers and fused with the residual and the clamped
       magnitude — one read of x and S, one write.
 
-Each wrapper launches its kernel (``csrc/highpass.cu``) on a CUDA tensor and
-counts the launch in ``LAUNCHES``; on a CPU tensor it runs its plain twin
-(``*_plain``) instead. A CUDA tensor never takes the plain twin. The backward
-kernels are not ported yet, so a CUDA input that requires grad raises.
+Backward (``csrc/highpass_bwd.cu``), the analytic adjoint on the saved S
+(``fft_pallas.py:324-386, 453-527``):
+
+  kernel 3, ``highpass_bwd_contract``: z = x - U_H S rebuilt per column,
+      u = g z/|z| (0 under the clamp), Re u written in x's type and
+      T = U_H^T conj(u) accumulated in f32. g has x's type, as autograd
+      gives it.
+  middle: the forward middle in reverse (``fft_pallas.py:496-509``):
+      ``w_axis_middle`` with U_W^T and V_W^T in the places of V_W and U_W.
+  kernel 4, ``highpass_bwd_expand``: dx = Re u - Re(V_H^T R) in x's type.
+
+``HighPassFunction`` ties the four together for autograd, saving (x, S_r,
+S_i) as the JAX VJP does (``fft_pallas.py:664-671``).
+
+Each wrapper launches its kernel on a CUDA tensor and counts the launch in
+``LAUNCHES``; on a CPU tensor it runs its plain twin (``*_plain``) instead. A
+CUDA tensor never takes the plain twin.
 """
 
 from __future__ import annotations
@@ -31,7 +46,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches per wrapper since the last reset (plain-twin calls are not
 # launches). A run reads them to show that its path went through the kernels.
-LAUNCHES: Dict[str, int] = {"highpass_contract": 0, "highpass_expand": 0}
+LAUNCHES: Dict[str, int] = {"highpass_contract": 0, "highpass_expand": 0,
+                            "highpass_bwd_contract": 0, "highpass_bwd_expand": 0}
 
 
 def reset_launches() -> None:
@@ -98,6 +114,32 @@ def highpass_expand_plain(x3, ur, ui, sr, si):
     return torch.sqrt(torch.clamp(zr * zr + li * li, min=_EPS)).to(x3.dtype)
 
 
+def highpass_bwd_contract_plain(x3, g3, ur, ui, sr, si):
+    """Kernel 3's math (``fft_pallas.py:390-423``): with z = x - U_H S and
+    u = g z/|z| (0 where |z|^2 < 1e-24), returns (Re u in x3's dtype,
+    T_r, T_i) where T = U_H^T conj(u) is summed from the unrounded f32 u.
+    x3, g3 (B,H,WC); ur, ui (H,K) f32; sr, si (B,K,WC) f32."""
+    ein = torch.einsum
+    lr = ein("hk,bkj->bhj", ur, sr) - ein("hk,bkj->bhj", ui, si)
+    li = ein("hk,bkj->bhj", ur, si) + ein("hk,bkj->bhj", ui, sr)
+    zr = x3.float() - lr
+    zi = -li
+    sq = zr * zr + zi * zi
+    coef = torch.where(sq >= _EPS, g3.float() / torch.sqrt(torch.clamp(sq, min=_EPS)), 0.0)
+    u_r = coef * zr
+    u_i = coef * zi
+    t_r = ein("hk,bhj->bkj", ur, u_r) + ein("hk,bhj->bkj", ui, u_i)
+    t_i = ein("hk,bhj->bkj", ui, u_r) - ein("hk,bhj->bkj", ur, u_i)
+    return u_r.to(x3.dtype), t_r, t_i
+
+
+def highpass_bwd_expand_plain(u_re, vr_t, vi_t, rr, ri):
+    """Kernel 4's math (``fft_pallas.py:427-431``): f32(u_re) - Re(V_H^T R),
+    rounded to u_re's dtype (g's). vr_t, vi_t (H,K) f32; rr, ri (B,K,WC)."""
+    adj = torch.einsum("hk,bkj->bhj", vr_t, rr) - torch.einsum("hk,bkj->bhj", vi_t, ri)
+    return (u_re.float() - adj).to(u_re.dtype)
+
+
 # ----------------------------------------------------------------- wrappers
 
 def _check(name: str, x3: torch.Tensor, k: int) -> int:
@@ -108,10 +150,6 @@ def _check(name: str, x3: torch.Tensor, k: int) -> int:
         raise ValueError(f"{name}: x must be float32 or bfloat16, got {x3.dtype}")
     if k not in SUPPORTED_K:
         raise ValueError(f"{name}: K={k} not in {SUPPORTED_K} (mask_range <= 32)")
-    if x3.requires_grad:
-        raise NotImplementedError(
-            f"{name}: the CUDA backward kernels are not ported yet; run the "
-            "forward under torch.inference_mode() or torch.no_grad()")
     if x3.numel() >= 2**31:
         raise ValueError(f"{name}: {x3.numel()} elements exceed the kernel's int32 extents")
     return _DTYPE_CODE[x3.dtype]
@@ -125,16 +163,31 @@ def _operand(name: str, t: torch.Tensor, shape, dtype, device) -> int:
     return t.data_ptr()
 
 
-def _lib():
+# ctypes signatures of each library's entry points: p = pointer or stream,
+# i = int (a pointer passed as a plain int would be cut to 32 bits).
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "highpass": {
+        "eelunet_highpass_contract": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "eelunet_highpass_expand": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "highpass_bwd": {
+        "eelunet_highpass_bwd_contract":
+            [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "eelunet_highpass_bwd_expand": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
+}
+SOURCES = tuple(_SIGNATURES)  # the csrc/<name>.cu files these wrappers launch
+
+
+def _lib(name: str):
     from eelunet_tpu_torch.ops._build import load
 
-    lib = load("highpass")
+    lib = load(name)
     if not getattr(lib, "_eelunet_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.eelunet_highpass_contract.argtypes = [i, i, p, p, p, p, p, i, i, i, p]
-        lib.eelunet_highpass_contract.restype = i
-        lib.eelunet_highpass_expand.argtypes = [i, i, p, p, p, p, p, p, i, i, i, p]
-        lib.eelunet_highpass_expand.restype = i
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
         lib._eelunet_typed = True
     return lib
 
@@ -156,7 +209,7 @@ def highpass_contract(x3: torch.Tensor, vr_t: torch.Tensor, vi_t: torch.Tensor):
             for t in (vr_t, vi_t)]
     tr = torch.empty((b, k, wc), dtype=torch.float32, device=x3.device)
     ti = torch.empty_like(tr)
-    err = _lib().eelunet_highpass_contract(
+    err = _lib("highpass").eelunet_highpass_contract(
         code, k, x3.data_ptr(), *ptrs, tr.data_ptr(), ti.data_ptr(), b, h, wc,
         torch.cuda.current_stream(x3.device).cuda_stream)
     _raise_on("highpass_contract", err)
@@ -177,12 +230,63 @@ def highpass_expand(x3: torch.Tensor, ur: torch.Tensor, ui: torch.Tensor,
     ptrs = [_operand("highpass_expand", t, (h, k), f32, x3.device) for t in (ur, ui)]
     ptrs += [_operand("highpass_expand", t, (b, k, wc), f32, x3.device) for t in (sr, si)]
     out = torch.empty_like(x3)
-    err = _lib().eelunet_highpass_expand(
+    err = _lib("highpass").eelunet_highpass_expand(
         code, k, x3.data_ptr(), *ptrs, out.data_ptr(), b, h, wc,
         torch.cuda.current_stream(x3.device).cuda_stream)
     _raise_on("highpass_expand", err)
     LAUNCHES["highpass_expand"] += 1
     return out
+
+
+def highpass_bwd_contract(x3: torch.Tensor, g3: torch.Tensor, ur: torch.Tensor,
+                          ui: torch.Tensor, sr: torch.Tensor, si: torch.Tensor):
+    """Kernel 3. x3, g3 (B,H,WC) f32/bf16, of one dtype; ur, ui (H,K) f32;
+    sr, si (B,K,WC) f32. Returns (u_re in x3's dtype, T_r, T_i (B,K,WC) f32)."""
+    name = "highpass_bwd_contract"
+    if g3.shape != x3.shape or g3.dtype != x3.dtype or g3.device != x3.device:
+        raise ValueError(f"{name}: g {tuple(g3.shape)} {g3.dtype} on {g3.device} does not "
+                         f"match x {tuple(x3.shape)} {x3.dtype} on {x3.device}")
+    if x3.device.type == "cpu":
+        return highpass_bwd_contract_plain(x3, g3, ur, ui, sr, si)
+    b, h, wc = x3.shape
+    k = ur.shape[1]
+    code = _check(name, x3, k)
+    _check(name, g3, k)
+    f32 = torch.float32
+    ptrs = [_operand(name, t, (h, k), f32, x3.device) for t in (ur, ui)]
+    ptrs += [_operand(name, t, (b, k, wc), f32, x3.device) for t in (sr, si)]
+    u_re = torch.empty_like(x3)
+    tr = torch.empty((b, k, wc), dtype=f32, device=x3.device)
+    ti = torch.empty_like(tr)
+    err = _lib("highpass_bwd").eelunet_highpass_bwd_contract(
+        code, k, x3.data_ptr(), g3.data_ptr(), *ptrs, u_re.data_ptr(),
+        tr.data_ptr(), ti.data_ptr(), b, h, wc,
+        torch.cuda.current_stream(x3.device).cuda_stream)
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return u_re, tr, ti
+
+
+def highpass_bwd_expand(u_re: torch.Tensor, vr_t: torch.Tensor, vi_t: torch.Tensor,
+                        rr: torch.Tensor, ri: torch.Tensor) -> torch.Tensor:
+    """Kernel 4. u_re (B,H,WC) f32/bf16 (x's dtype); vr_t, vi_t (H,K) f32;
+    rr, ri (B,K,WC) f32. Returns dx (B,H,WC) in u_re's dtype."""
+    if u_re.device.type == "cpu":
+        return highpass_bwd_expand_plain(u_re, vr_t, vi_t, rr, ri)
+    name = "highpass_bwd_expand"
+    b, h, wc = u_re.shape
+    k = vr_t.shape[1]
+    code = _check(name, u_re, k)
+    f32 = torch.float32
+    ptrs = [_operand(name, t, (h, k), f32, u_re.device) for t in (vr_t, vi_t)]
+    ptrs += [_operand(name, t, (b, k, wc), f32, u_re.device) for t in (rr, ri)]
+    dx = torch.empty_like(u_re)
+    err = _lib("highpass_bwd").eelunet_highpass_bwd_expand(
+        code, k, *ptrs, u_re.data_ptr(), dx.data_ptr(), b, h, wc,
+        torch.cuda.current_stream(u_re.device).cuda_stream)
+    _raise_on(name, err)
+    LAUNCHES[name] += 1
+    return dx
 
 
 def w_axis_middle(tr, ti, uwr, uwi, vwr, vwi, w: int, c: int):
@@ -200,13 +304,58 @@ def w_axis_middle(tr, ti, uwr, uwi, vwr, vwi, w: int, c: int):
     return s_r.reshape(b, k, w * c).contiguous(), s_i.reshape(b, k, w * c).contiguous()
 
 
-def high_pass_fft_cuda(x: torch.Tensor, mask_range: int = 20) -> torch.Tensor:
-    """abs(x - lowpass(x)) for NHWC input through the kernel pair (the plain
-    twins on a CPU tensor). The output has x's shape and dtype."""
+def highpass_fwd(x: torch.Tensor, mask_range: int):
+    """Kernels 1 and 2 with the middle between: (out, S_r, S_i) for NHWC x,
+    out in x's dtype, S the skinny spectrum the backward reuses."""
     b, h, w, c = x.shape
     vr_t, vi_t, uhr, uhi, uwr, uwi, vwr, vwi = factor_tensors(
         h, w, mask_range, x.dtype, x.device)
     x3 = x.reshape(b, h, w * c)
     tr, ti = highpass_contract(x3, vr_t, vi_t)
     s_r, s_i = w_axis_middle(tr, ti, uwr, uwi, vwr, vwi, w, c)
-    return highpass_expand(x3, uhr, uhi, s_r, s_i).view(b, h, w, c)
+    return highpass_expand(x3, uhr, uhi, s_r, s_i).view(b, h, w, c), s_r, s_i
+
+
+def highpass_bwd(x: torch.Tensor, s_r: torch.Tensor, s_i: torch.Tensor, g: torch.Tensor,
+                 mask_range: int) -> torch.Tensor:
+    """Kernels 3 and 4 with the adjoint middle between: dx for NHWC x and
+    its contiguous cotangent g of x's dtype, in that dtype. Every factor is float32
+    (``_bwd_factor_args``, ``fft_pallas.py:434-450``)."""
+    b, h, w, c = x.shape
+    vr_t, vi_t, uhr, uhi, uwr, uwi, vwr, vwi = factor_tensors(
+        h, w, mask_range, torch.float32, x.device)
+    u_re, tr, ti = highpass_bwd_contract(
+        x.reshape(b, h, w * c), g.reshape(b, h, w * c), uhr, uhi, s_r, s_i)
+    r_r, r_i = w_axis_middle(tr, ti, vwr.T, vwi.T, uwr.T, uwi.T, w, c)
+    return highpass_bwd_expand(u_re, vr_t, vi_t, r_r, r_i).view(b, h, w, c)
+
+
+class HighPassFunction(torch.autograd.Function):
+    """The high-pass with its analytic backward. Saves (x, S_r, S_i), so the
+    backward never recomputes the contraction of x. Autocast is off inside
+    both passes: the W-axis middle and every factor stay float32, whatever
+    the caller's autocast region."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, mask_range: int) -> torch.Tensor:
+        with torch.autocast(x.device.type, enabled=False):
+            out, s_r, s_i = highpass_fwd(x, mask_range)
+        ctx.mask_range = mask_range
+        ctx.save_for_backward(x, s_r, s_i)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, s_r, s_i = ctx.saved_tensors
+        with torch.autocast(x.device.type, enabled=False):
+            return highpass_bwd(x, s_r, s_i, g.contiguous(), ctx.mask_range), None
+
+
+def high_pass_fft_cuda(x: torch.Tensor, mask_range: int = 20) -> torch.Tensor:
+    """abs(x - lowpass(x)) for NHWC input through the kernels (the plain
+    twins on a CPU tensor). The output has x's shape and dtype. With grad
+    enabled and x requiring it, the call goes through ``HighPassFunction``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return HighPassFunction.apply(x, mask_range)
+    with torch.autocast(x.device.type, enabled=False):
+        return highpass_fwd(x, mask_range)[0]

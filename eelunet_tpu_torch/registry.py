@@ -47,6 +47,18 @@ def model_dtype(model_cfg) -> torch.dtype:
     return DTYPES[model_cfg.dtype]
 
 
+def resolve_device(device=None) -> torch.device:
+    """The torch device an entry point runs on: None means "cuda". A CUDA
+    device without a card raises; nothing falls back to the CPU unless the
+    caller names it (``--device cpu``)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the card. Pass "
+            "device='cpu' (--device cpu on the CLIs) to run on the CPU.")
+    return dev
+
+
 def create_model(model_cfg, bn_folded: bool = False, device=None, dtype=None,
                  widths=None) -> Tuple[Any, ModelMeta]:
     """Instantiate an ``nn.Module`` + metadata from a ModelConfig. The

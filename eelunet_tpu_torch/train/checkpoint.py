@@ -1,0 +1,177 @@
+"""Checkpoints of the train state (counterpart of
+``eelunet_tpu/train/checkpoint.py``), in a torch-native format.
+
+Two tiers, with the JAX package's names under ``save_dir/<name>/``:
+
+- full snapshots, ``<name>_epoch_N/`` and ``<name>_last/``: ``state.pt``
+  (model parameters and BN buffers, optimizer, scheduler, step, seed, EMA)
+  and the ``framework_meta.json`` epoch record the JAX package writes; exact
+  resume reads them (``resume_from=auto`` takes the newest);
+- weights-only tags, ``<name>_best_{iou,dice,miou,mdice,boundary_f1}.npz``,
+  ``<name>_best.npz`` (min val loss) and ``<name>_ema.npz``: upstream-layout
+  state dicts (``models/convert.to_upstream_state_dict``), so
+  ``python -m eelunet_tpu_torch.cli.serve --checkpoint <tag>.npz`` serves a
+  tag as it is. Tags written in the same epoch are hard links of one file.
+
+Writes are synchronous: ``async_checkpoint`` is accepted and ignored. Each
+file is written under a temporary name and renamed into place.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from eelunet_tpu_torch.models.convert import to_upstream_state_dict
+
+BEST_METRICS = ("iou", "dice", "miou", "mdice", "boundary_f1")
+
+# The JAX package's sidecar marker: format 2 = concat-ordered EELUnet bridge.
+FORMAT_META = {"format": 2, "eelunet_bridge": "concat"}
+_META_FILE = "framework_meta.json"
+_STATE_FILE = "state.pt"
+
+
+def write_format_meta(path: str, ema: bool = False, epoch: Optional[int] = None) -> None:
+    meta = dict(FORMAT_META)
+    if ema:
+        meta["ema"] = True
+    if epoch is not None:
+        meta["epoch"] = int(epoch)  # completed epochs at save time (exact resume)
+    with open(os.path.join(path, _META_FILE), "w") as f:
+        json.dump(meta, f)
+
+
+def read_meta(path: str) -> Dict[str, Any]:
+    try:
+        with open(os.path.join(path, _META_FILE)) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
+
+
+def is_full_snapshot(path: str) -> bool:
+    return os.path.isfile(os.path.join(path, _STATE_FILE))
+
+
+class CheckpointManager:
+    def __init__(self, save_dir: str, model_name: str):
+        self.root = os.path.abspath(os.path.join(save_dir, model_name))
+        os.makedirs(self.root, exist_ok=True)
+        self.model_name = model_name
+
+    def tag_path(self, tag: str) -> str:
+        return os.path.join(self.root, f"{self.model_name}_{tag}")
+
+    def save(self, tag: str, state, epoch: Optional[int] = None) -> str:
+        """Full snapshot of ``state`` (a TrainState) under ``<name>_<tag>/``."""
+        path = self.tag_path(tag)
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, _STATE_FILE + ".tmp")
+        torch.save(state.state_dict(), tmp)
+        os.replace(tmp, os.path.join(path, _STATE_FILE))
+        write_format_meta(path, ema=state.ema is not None, epoch=epoch)
+        return path
+
+    def save_weights_tags(self, tags, state_dict: Dict[str, torch.Tensor]) -> List[str]:
+        """Write ``state_dict`` (the port's, unfolded) once as an
+        upstream-layout ``.npz`` per tag; the tags after the first are hard
+        links of the first file."""
+        paths = [self.tag_path(t) + ".npz" for t in tags]
+        if not paths:
+            return []
+        arrays = to_upstream_state_dict(state_dict)
+        for i, path in enumerate(paths):
+            tmp = path + ".tmp"
+            if i == 0:
+                with open(tmp, "wb") as f:
+                    np.savez(f, **arrays)
+            else:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                os.link(paths[0], tmp)
+            os.replace(tmp, path)
+        return paths
+
+    def restore(self, path: str, state) -> Any:
+        """Load a full snapshot into ``state`` (a TrainState) in place."""
+        if not is_full_snapshot(path):
+            raise ValueError(
+                f"{path} is not a full snapshot (no {_STATE_FILE}): weights-only tags "
+                "carry no optimizer state to resume from; resume from "
+                f"{self.model_name}_epoch_N or {self.model_name}_last")
+        device = next(state.model.parameters()).device
+        sd = torch.load(os.path.join(path, _STATE_FILE), map_location=device,
+                        weights_only=True)
+        if state.ema is not None and sd.get("ema") is None:
+            import warnings
+
+            warnings.warn(f"{path} predates optimizer.ema_decay: initializing the EMA "
+                          "from the restored params", stacklevel=2)
+        state.load_state_dict(sd)
+        return state
+
+    def prune_snapshots(self, keep: int) -> List[str]:
+        """Delete all but the newest ``keep`` ``<name>_epoch_N`` snapshots
+        (0 keeps all). Best tags and ``last`` are never pruned."""
+        if keep <= 0:
+            return []
+        pat = re.compile(re.escape(self.model_name) + r"_epoch_(\d+)$")
+        snaps = sorted((int(m.group(1)), os.path.join(self.root, d))
+                       for d in os.listdir(self.root)
+                       if (m := pat.match(d)) and os.path.isdir(os.path.join(self.root, d)))
+        doomed = [p for _, p in snaps[:-keep]]
+        for p in doomed:
+            shutil.rmtree(p)
+        return doomed
+
+    def latest_path(self) -> Optional[str]:
+        """The most recently written full snapshot (``resume_from=auto``)."""
+        candidates = [p for d in os.listdir(self.root)
+                      if d.startswith(f"{self.model_name}_")
+                      and is_full_snapshot(p := os.path.join(self.root, d))]
+        return max(candidates, key=lambda p: os.path.getmtime(os.path.join(p, _STATE_FILE))) \
+            if candidates else None
+
+
+class BestTracker:
+    """Best-per-metric tracking with the reference's save policy. Its marks
+    round-trip through ``best_meta.json`` so a resumed run keeps the
+    uninterrupted run's high-water marks."""
+
+    def __init__(self):
+        self.best = {m: 0.0 for m in BEST_METRICS}
+        self.min_val_loss = float("inf")
+
+    def save(self, root: str) -> None:
+        with open(os.path.join(root, "best_meta.json"), "w") as f:
+            json.dump({"best": self.best, "min_val_loss": self.min_val_loss}, f)
+
+    def load(self, root: str) -> bool:
+        try:
+            with open(os.path.join(root, "best_meta.json")) as f:
+                meta = json.load(f)
+        except (OSError, ValueError):
+            return False
+        self.best.update({m: float(v) for m, v in meta.get("best", {}).items()
+                          if m in self.best})
+        self.min_val_loss = float(meta.get("min_val_loss", float("inf")))
+        return True
+
+    def update(self, metrics: Dict[str, float], val_loss: float) -> List[str]:
+        """The checkpoint tags to save this epoch."""
+        tags = []
+        for m in BEST_METRICS:
+            if metrics.get(m, 0.0) > self.best[m]:
+                self.best[m] = float(metrics[m])
+                tags.append(f"best_{m}")
+        if val_loss < self.min_val_loss:
+            self.min_val_loss = float(val_loss)
+            tags.append("best")
+        return tags

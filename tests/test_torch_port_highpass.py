@@ -108,7 +108,8 @@ def test_cpu_tensor_takes_the_plain_twin():
     x = torch.from_numpy(_rand((1, 32, 32, 4)))
     out = high_pass_fft(x, 6, "auto")
     np.testing.assert_allclose(out.numpy(), high_pass_fft_lowrank(x, 6).numpy(), atol=2e-5)
-    assert fft_cuda.LAUNCHES == {"highpass_contract": 0, "highpass_expand": 0}
+    assert fft_cuda.LAUNCHES == {"highpass_contract": 0, "highpass_expand": 0,
+                                 "highpass_bwd_contract": 0, "highpass_bwd_expand": 0}
     with pytest.raises(ValueError, match="unknown highpass_impl"):
         high_pass_fft(x, 6, "fft")
 
@@ -121,6 +122,4 @@ def test_wrapper_checks_before_launch():
         fft_cuda._check("k", ok.half(), 16)
     with pytest.raises(ValueError, match="K=40"):
         fft_cuda._check("k", ok, 40)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fft_cuda._check("k", ok.clone().requires_grad_(True), 16)
     assert fft_cuda._check("k", ok.bfloat16(), 48) == 1

@@ -15,6 +15,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from eelunet_tpu.bnfold import fold_bn_eval as jax_fold_bn_eval
 from eelunet_tpu.config import ModelConfig as JaxModelConfig
@@ -103,7 +104,8 @@ def test_service_answers_npy_and_png(predictors):
         stats = service.stats()
         assert stats["requests"] == 5
         # a CPU device runs the plain twins: no kernel launches
-        assert stats["kernel_launches"] == {"highpass_contract": 0, "highpass_expand": 0}
+        assert stats["kernel_launches"] == {"highpass_contract": 0, "highpass_expand": 0,
+                                            "highpass_bwd_contract": 0, "highpass_bwd_expand": 0}
     finally:
         server.shutdown()
         service.close()
@@ -137,6 +139,15 @@ def test_upstream_checkpoints_load_and_hot_reload(tmp_path):
         service.close()
         for name in ("w.npz", "w.pth"):  # 100 MB each at full width
             (tmp_path / name).unlink()
+
+
+def test_predictor_without_a_card_raises():
+    """No device means the card; without one the Predictor refuses rather
+    than serve on the CPU unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(ModelConfig(name="eelunet"))
 
 
 def test_out_of_scope_options_raise():

@@ -1,14 +1,19 @@
-"""Where the time goes in the PyTorch port's serving forward, on a CUDA card.
+"""Where the time goes in the PyTorch port on a CUDA card: the serving
+forward, or the train step.
 
-Builds the full-width EELUnet (random weights from a seed, BN folded) in the
-serving dtype, runs warm-up forwards at (batch, 3, size, size), then traces
-``--iters`` forwards with ``torch.profiler``. Prints the card's name and
-power limit, the forward time per batch (CUDA events), the device busy share
-of the traced window, the device time grouped by kind (convolutions, GEMMs,
-the high-pass kernels, everything else) and the top ops by device time.
+``--mode forward`` (default) builds the full-width EELUnet (random weights
+from a seed, BN folded) in the serving dtype and runs forwards at
+(batch, 3, size, size). ``--mode train`` runs the port's train step
+(``train/trainer.make_train_step``: bf16 autocast on f32 weights, live BN,
+the edge_bce_dice loss, Adam) on seeded random images and random binary
+masks. Either way: warm-up, ``--iters`` timed with CUDA events, then
+``--iters`` traced with ``torch.profiler``. Prints the card's name and power
+limit, the time per batch, the device busy share of the traced window, the
+device time grouped by kind (convolutions, GEMMs, the high-pass kernels,
+the optimizer, everything else) and the top ops by device time.
 
-    python tools/profile_torch_forward.py [--size 512] [--batch 16]
-        [--dtype bfloat16] [--iters 5] [--highpass_impl auto]
+    python tools/profile_torch_forward.py [--mode forward|train] [--size 512]
+        [--batch 16] [--dtype bfloat16] [--iters 5] [--highpass_impl auto]
 
 Fails when no CUDA card is present: a CPU run measures nothing of the card.
 """
@@ -29,19 +34,60 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def kind(name: str) -> str:
     n = name.lower()
+    if "bwd_contract_kernel" in n or "bwd_expand_kernel" in n:
+        return "high-pass backward kernels (csrc/highpass_bwd.cu)"
     if "contract_kernel" in n or "expand_kernel" in n:
-        return "high-pass kernels (csrc/highpass.cu)"
-    if "conv" in n or "cudnn" in n or "xmma" in n or "implicit" in n or "dgrad" in n:
+        return "high-pass forward kernels (csrc/highpass.cu)"
+    if "adam" in n or "multi_tensor" in n or "foreach" in n:
+        return "optimizer (Adam, foreach)"
+    if any(t in n for t in ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")):
         return "convolutions (cuDNN)"
-    if "gemm" in n or "sm90_" in n or "cutlass" in n or "ampere" in n:
+    if any(t in n for t in ("gemm", "sm90_", "sm80_", "cutlass", "ampere", "xmma")):
         return "matmuls (cuBLAS)"
     return "elementwise, norms, copies, reductions"
 
 
+def forward_runner(args):
+    """The serving forward: BN folded, weights in the serving dtype."""
+    from eelunet_tpu_torch.config import ModelConfig
+    from eelunet_tpu_torch.inference import build_serving_model, random_state_dict
+
+    cfg = ModelConfig(name="eelunet", dtype=args.dtype, highpass_impl=args.highpass_impl)
+    dev = torch.device("cuda")
+    model = build_serving_model(random_state_dict(cfg, seed=args.seed), cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    x = torch.randn((args.batch, 3, args.size, args.size), generator=g, device=dev)
+    x = x.to(model.final_conv.weight.dtype).contiguous(memory_format=torch.channels_last)
+    return (lambda: model(x)), torch.inference_mode
+
+
+def train_runner(args):
+    """The train step on f32 weights, autocast to ``--dtype``."""
+    import contextlib
+
+    from eelunet_tpu_torch.config import TrainConfig, apply_overrides
+    from eelunet_tpu_torch.train.trainer import Trainer, make_train_step
+
+    cfg = apply_overrides(TrainConfig(), [
+        "model.name=eelunet", f"model.dtype={args.dtype}",
+        f"model.highpass_impl={args.highpass_impl}", f"data.image_size={args.size}",
+        f"data.batch_size={args.batch}", f"seed={args.seed}"])
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(steps_per_epoch=1000)
+    step = make_train_step(trainer.loss_fn, trainer.amp_dtype)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    x = torch.randn((args.batch, args.size, args.size, 3), generator=g, device=dev)
+    y = (torch.rand((args.batch, args.size, args.size, 1), generator=g, device=dev) > 0.7).float()
+    return (lambda: step(state, x, y)), contextlib.nullcontext
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--mode", default="forward", choices=["forward", "train"])
     p.add_argument("--size", type=int, default=512)
-    p.add_argument("--batch", type=int, default=16)
+    p.add_argument("--batch", type=int, default=None,
+                   help="default 16 for forward, 8 for train")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--highpass_impl", default="auto", choices=["auto", "lowrank"])
@@ -50,57 +96,56 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("no CUDA card: nothing to measure", file=sys.stderr)
         return 1
-
-    from eelunet_tpu_torch.config import ModelConfig
-    from eelunet_tpu_torch.inference import build_serving_model, random_state_dict
+    if args.batch is None:
+        args.batch = 16 if args.mode == "forward" else 8
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    cfg = ModelConfig(name="eelunet", dtype=args.dtype, highpass_impl=args.highpass_impl)
-    dev = torch.device("cuda")
-    model = build_serving_model(random_state_dict(cfg, seed=args.seed), cfg, dev)
-    g = torch.Generator(device=dev).manual_seed(args.seed)
-    x = torch.randn((args.batch, 3, args.size, args.size), generator=g, device=dev)
-    x = x.to(model.final_conv.weight.dtype).contiguous(memory_format=torch.channels_last)
-
-    with torch.inference_mode():
+    run, grad_mode = (train_runner if args.mode == "train" else forward_runner)(args)
+    peak = 0.0
+    with grad_mode():
         for _ in range(3):
-            model(x)
+            run()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(args.iters):
-            model(x)
+            run()
         end.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / args.iters
+        peak = torch.cuda.max_memory_allocated() / 2**30
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(args.iters):
-                model(x)
+                run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
 
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # Device-side ranges of annotations (e.g. "Optimizer.step#Adam.step")
+    # span kernels already counted: leave them out of the sums.
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and "#" not in e.key and not e.key.startswith("ProfilerStep")]
     dev_us = {e.key: e.self_device_time_total for e in events}
     total = sum(dev_us.values())
     print(smi)
-    print(f"forward ({args.batch},3,{args.size},{args.size}) {args.dtype} highpass="
+    print(f"{args.mode} ({args.batch},3,{args.size},{args.size}) {args.dtype} highpass="
           f"{args.highpass_impl}: {ms:.2f} ms/batch ({args.batch * 1e3 / ms:.1f} img/s, "
-          "CUDA events)")
+          f"CUDA events); peak memory {peak:.2f} GiB")
     if total == 0:
         print("the profiler recorded no device time; only the CUDA-event time above holds")
         return 0
-    print(f"traced {args.iters} forwards: device busy {total / 1e3:.2f} ms of "
+    print(f"traced {args.iters} {args.mode} steps: device busy {total / 1e3:.2f} ms of "
           f"{wall_us / 1e3:.2f} ms wall ({100 * total / wall_us:.1f}% busy)")
     groups = defaultdict(float)
     for k, us in dev_us.items():
         groups[kind(k)] += us
     for k, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {100 * us / total:5.1f}%  {us / args.iters / 1e3:8.3f} ms/forward  {k}")
-    print("top ops by device time (per forward):")
+        print(f"  {100 * us / total:5.1f}%  {us / args.iters / 1e3:8.3f} ms/{args.mode}  {k}")
+    print(f"top ops by device time (per {args.mode}):")
     for k, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:20]:
         print(f"  {us / args.iters / 1e3:8.3f} ms  {100 * us / total:5.1f}%  {k[:110]}")
     return 0
