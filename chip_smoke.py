@@ -20,6 +20,13 @@ Phases (any failure exits non-zero; none is skipped):
    (8,256,256,128) and (8,512,512,64), m = 20, in float32 and bfloat16:
    kernel 3 (u_re, T) and kernel 4 (dx) alone, then the whole Function's
    gradient against autograd through the plain low-rank op.
+3c. Kernel 5 (the Canny stencil) against its twin in both modes at the
+   Canny path's site, (8,512,512,1) float32 grayscale of seeded blob images:
+   the share of pixels that disagree and, in mode ``improve``, the max |d|
+   of the NMS magnitude. Kernel 6 (the 3x3 conv) against its twin (cuDNN in
+   float32, TF32 off) in bfloat16 and float32 at (8,512,512,128) -> 64 and
+   (8,512,512,64) -> 64, by relative L2, timed beside one cuDNN call of the
+   same function on channels_last bfloat16 (its ``library_ms``).
 4. Serve through the entry point a user runs: a seeded random-init EELUnet
    (full width, 26.26M params) is written as an upstream-layout .npz, and
    ``python -m eelunet_tpu_torch.cli.serve ... --image_size 512 --set
@@ -44,6 +51,15 @@ Phases (any failure exits non-zero; none is skipped):
    tree of 24/8 images, in a subprocess; check the history, the best tags
    and ``last``, the run's kernel launches, and serve the ``best`` tag
    through the Predictor on the card.
+9. The Canny path: in-process, the train step at 512^2 b8 bf16 with
+   ``data.add_canny_edge`` and ``data.canny_enhance`` (4 input channels)
+   behind the device-side input chain, timed against phase 6's step, with
+   the chain's time, the eval step's time and the hysteresis iterations
+   per batch. Then ``python -m eelunet_tpu_torch.cli.train`` with both
+   flags for 2 epochs on phase 7's tree and ``python -m
+   eelunet_tpu_torch.cli.evaluate`` on its best tag: kernel 5 launches twice
+   per batch in both runs, kernels 1-4 as in phase 7, and the evaluation
+   prints the metrics the training run recorded for that tag.
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit; the last line is
@@ -116,14 +132,36 @@ KERNELS = {
     "highpass_expand": "eelunet_tpu/ops/fft_pallas.py:167",
     "highpass_bwd_contract": "eelunet_tpu/ops/fft_pallas.py:390",
     "highpass_bwd_expand": "eelunet_tpu/ops/fft_pallas.py:427",
+    "fused_canny": "eelunet_tpu/ops/edge_pallas.py:70",
+    "conv3x3": "eelunet_tpu/ops/conv_pallas.py:42",
 }
 SOURCES = {
     "highpass_contract": "eelunet_tpu_torch/csrc/highpass.cu",
     "highpass_expand": "eelunet_tpu_torch/csrc/highpass.cu",
     "highpass_bwd_contract": "eelunet_tpu_torch/csrc/highpass_bwd.cu",
     "highpass_bwd_expand": "eelunet_tpu_torch/csrc/highpass_bwd.cu",
+    "fused_canny": "eelunet_tpu_torch/csrc/canny.cu",
+    "conv3x3": "eelunet_tpu_torch/csrc/conv3x3.cu",
 }
-FWD, BWD = tuple(KERNELS)[:2], tuple(KERNELS)[2:]
+HIGHPASS = tuple(KERNELS)[:4]
+FWD, BWD = HIGHPASS[:2], HIGHPASS[2:]
+# Kernel 5 runs on the grayscale of each batch of the Canny path, twice per
+# batch (canny_enhance, then add_canny_edge), in mode "improve".
+CANNY_SITE = (8, 512, 512, 1)
+# Kernel 5 vs its twin: both round every product and sum alike, so the
+# outputs should agree exactly; a few pixels could flip where the kernel's
+# atan2f and PyTorch's disagree on the last bit at a bucket edge.
+CANNY_TOL = {"disagree": 1e-4, "nms": 1e-5}  # share of pixels; max |d| where both keep
+# Kernel 6 at the two full-resolution decoder shapes, (B,H,W,Cin) -> Cout.
+CONV_SITES = ((8, 512, 512, 128, 64), (8, 512, 512, 64, 64))
+# Kernel 6 vs its twin (cuDNN in float32, TF32 off), relative L2: float32
+# differs by summation order, bfloat16 by one rounding of the output.
+CONV_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# Floating-point operations per output pixel of kernel 5, counted from its
+# code: blur 2 x (5 mul + 4 add), Sobel 6 sub + 2 mul + 4 add, mag^2 3,
+# then the zero mode's bucket products 3, or the improve mode's sqrt, eps
+# add, atan2, degree mul and wrap add 5.
+CANNY_FLOPS = {"zero": 36, "improve": 38}
 # Published H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, and
 # FLOP/s for the kernels' input type (bf16 dense tensor cores; f32 on CUDA
 # cores, since f32 arithmetic has no faster unit).
@@ -196,11 +234,10 @@ def phase_card():
 
 
 def phase_build():
-    from eelunet_tpu_torch.ops import _build
-    from eelunet_tpu_torch.ops.fft_cuda import SOURCES as LIBS
+    from eelunet_tpu_torch.ops import _build, conv_cuda, edge_cuda, fft_cuda
 
     t0 = time.monotonic()
-    built = _build.build_all(LIBS)
+    built = _build.build_all(fft_cuda.SOURCES + edge_cuda.SOURCES + conv_cuda.SOURCES)
     for name, (path, seconds, log) in built.items():
         print(f"[2] built {path.name} in {seconds:.1f} s (0 = already built)")
         for line in log.splitlines():
@@ -284,7 +321,7 @@ def rel_l2(got, want) -> float:
 def _print_rows(phase, rows, shape, dname, tol, k, metric="rel"):
     for name, ((abs_e, rel_e), ms, plain_ms, lib_ms) in rows.items():
         extra = ""
-        if name in KERNELS:
+        if name in HIGHPASS:
             bound_ms, bound_by = kernel_bound(name, shape, dname, k)
             extra = f"  bound {bound_ms:.3f} ms ({bound_by})"
         if lib_ms is not None:
@@ -403,6 +440,119 @@ def phase_bwd_kernels():
     return record
 
 
+def canny_bound(shape, mode: str) -> tuple:
+    """(bound_ms, bound_by) of one launch of kernel 5 on a float32 image
+    ``shape``: the image read once and the output written once, against
+    CANNY_FLOPS per pixel at the float32 peak."""
+    n = int(np.prod(shape))
+    t_bytes = 2 * n * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = CANNY_FLOPS[mode] * n / PEAK_FLOPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv_bound(site, dname: str) -> tuple:
+    """(bound_ms, bound_by) of one launch of kernel 6 at ``site`` (B,H,W,Cin,
+    Cout) in ``dname``: x, w and out once each (scale and shift in f32),
+    against 2*B*H*W*9*Cin*Cout flops at the peak for the input type."""
+    b, h, w, cin, cout = site
+    sx = 2 if dname == "bfloat16" else 4
+    nbytes = (b * h * w * (cin + cout) + 9 * cin * cout) * sx + 2 * cout * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * b * h * w * 9 * cin * cout / PEAK_FLOPS[dname] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_canny_conv_kernels():
+    """Kernels 5 and 6 against their twins on the card; returns the record
+    of kernel 5 in mode "improve" (the Canny path's mode) and of kernel 6 in
+    bfloat16 at (8,512,512,128) -> 64."""
+    import torch
+    import torch.nn.functional as F
+
+    from eelunet_tpu_torch.ops import conv_cuda, edge_cuda
+    from eelunet_tpu_torch.ops.edge import rgb_to_grayscale
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    record = {}
+    (u8, _), = _train_batches(1, CANNY_SITE[0], SEED + 6)
+    gray = rgb_to_grayscale(torch.from_numpy(u8).to(dev).float() / 255.0).contiguous()
+    check(tuple(gray.shape) == CANNY_SITE, f"canny site {tuple(gray.shape)}")
+    low = 100.0 / 255.0
+    rows = {}
+    for mode in ("zero", "improve"):
+        with torch.inference_mode():
+            got = edge_cuda.fused_canny(gray, low, mode=mode)
+            want = edge_cuda.fused_canny_reference(gray, low, mode=mode)
+            torch.cuda.synchronize()
+            both = (got > 0) & (want > 0)
+            rows[mode] = {
+                "disagree": ((got > 0) != (want > 0)).float().mean().item(),
+                "abs_e": (got - want).abs().max().item(),
+                "nms_e": (got - want)[both].abs().max().item() if mode == "improve" else 0.0,
+                "kept": (got > 0).float().mean().item(),
+                "plain_ms": cuda_ms(lambda: edge_cuda.fused_canny_reference(gray, low, mode=mode)),
+                "ms": []}
+        del got, want, both
+    # The two modes' kernel times in turns (zero, improve, improve, zero).
+    with torch.inference_mode():
+        for mode in ("zero", "improve", "improve", "zero"):
+            rows[mode]["ms"].append(
+                cuda_ms(lambda: edge_cuda.fused_canny(gray, low, mode=mode), iters=20, warmup=3))
+    for mode, r in rows.items():
+        ms = float(np.mean(r["ms"]))
+        bound_ms, bound_by = canny_bound(CANNY_SITE, mode)
+        print(f"[3c] fused_canny {mode:7s} {str(CANNY_SITE):22s} float32  pixels kept "
+              f"{r['kept']:.4f}, disagreeing {r['disagree']:.3e} "
+              f"(bound {CANNY_TOL['disagree']:g}); "
+              f"max|d| {r['abs_e']:.3e}, NMS magnitude max|d| where both keep {r['nms_e']:.3e} "
+              f"(bound {CANNY_TOL['nms']:g})  kernel {ms:.4f} ms (turns "
+              f"{[round(t, 4) for t in r['ms']]})  plain {r['plain_ms']:.3f} ms  bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+        check(r["disagree"] <= CANNY_TOL["disagree"] and r["nms_e"] <= CANNY_TOL["nms"],
+              f"fused_canny {mode}: {r['disagree']:.3e} of pixels disagree, "
+              f"NMS max|d| {r['nms_e']:.3e}")
+        if mode == "improve":
+            record["fused_canny"] = ((r["abs_e"], r["disagree"]), ms, r["plain_ms"], None,
+                                     bound_ms, bound_by)
+    del gray
+
+    for site in CONV_SITES:
+        b, h, w, cin, cout = site
+        for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+            x = torch.randn((b, h, w, cin), generator=gen, device=dev).to(dtype)
+            wt = (0.1 * torch.randn((3, 3, cin, cout), generator=gen, device=dev)).to(dtype)
+            scale = 1.0 + 0.1 * torch.randn((cout,), generator=gen, device=dev)
+            shift = 0.1 * torch.randn((cout,), generator=gen, device=dev)
+            with torch.inference_mode():
+                got = conv_cuda.conv3x3(x, wt, scale, shift, relu=True)
+                want = conv_cuda.conv3x3_reference(x, wt, scale, shift, relu=True)
+                torch.cuda.synchronize()
+                e = (rel_err(got, want)[0], rel_l2(got, want))
+                del got, want
+                # Library yardstick: one cuDNN conv with the affine folded in,
+                # then ReLU, on channels_last operands made first.
+                x_cl = x.permute(0, 3, 1, 2)
+                w_lib = (wt.float() * scale).permute(3, 2, 0, 1).to(dtype).contiguous(
+                    memory_format=torch.channels_last)
+                b_lib = shift.to(dtype)
+                ms = cuda_ms(lambda: conv_cuda.conv3x3(x, wt, scale, shift, relu=True))
+                plain_ms = cuda_ms(
+                    lambda: conv_cuda.conv3x3_reference(x, wt, scale, shift, relu=True))
+                lib_ms = cuda_ms(lambda: F.relu(F.conv2d(x_cl, w_lib, b_lib, padding=1)))
+            bound_ms, bound_by = conv_bound(site, dname)
+            print(f"[3c] conv3x3 {str(site):22s} {dname:8s} max|d| {e[0]:.3e} rel-l2 {e[1]:.3e} "
+                  f"(bound {CONV_TOL[dname]:g})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+                  f"library {lib_ms:.3f} ms  bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+            check(e[1] <= CONV_TOL[dname], f"conv3x3 {site} {dname}: rel-l2 {e[1]:.3e}")
+            if site == CONV_SITES[0] and dtype == torch.bfloat16:
+                record["conv3x3"] = (e, ms, plain_ms, lib_ms, bound_ms, bound_by)
+            del x, wt, x_cl, w_lib
+            torch.cuda.empty_cache()
+    return record
+
+
 def _random_upstream_checkpoint(cfg, path):
     """Seeded random-init full-width EELUnet with randomised BN statistics,
     saved in the upstream layout that cli.export_torch --numpy writes."""
@@ -518,7 +668,7 @@ def phase_serve(ckpt: str, workdir: str):
               f"{wall:.2f} s wall; device_ms {stats['device_ms']}; "
               f"latency_ms {stats['latency_ms']}; launches {launches}", flush=True)
         check(stats["requests"] == len(singles) + batch.shape[0] + 1, f"stats: {stats}")
-        for name in KERNELS:
+        for name in HIGHPASS:
             want = 2 * stats["batches"] if name in FWD else 0
             check(launches[name] == want,
                   f"{name}: {launches[name]} launches for {stats['batches']} forwards")
@@ -562,7 +712,7 @@ def phase_model(sd, cfg):
             print(f"[5] {dname} b{batch}: launches per forward {launches}; kernel vs plain "
                   f"path max|d prob| {d.max().item():.3e} mean {d.mean().item():.3e} "
                   f"(bound {MODEL_TOL[dname]:g})", flush=True)
-            check(launches == {k: 2 if k in FWD else 0 for k in KERNELS},
+            check(launches == {k: 2 if k in FWD else 0 for k in HIGHPASS},
                   f"launches per forward: {launches}")
             check(bool(torch.isfinite(seg_k).all()) and seg_k.shape == (batch, 1, 512, 512),
                   f"{dname}: bad output {tuple(seg_k.shape)}")
@@ -630,7 +780,7 @@ def phase_train(workdir: str):
     print(f"[6] {n_params / 1e6:.2f}M params, 512^2 b8 bf16 autocast: 6 steps, losses "
           f"{[round(v, 4) for v in losses]}; launches {launches}; peak memory "
           f"{peak_gib:.2f} GiB", flush=True)
-    check(launches == {k: 12 for k in KERNELS}, f"launches over 6 steps: {launches}")
+    check(launches == {k: 12 for k in HIGHPASS}, f"launches over 6 steps: {launches}")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
 
     def steps_ms(impl: str, n: int = 3) -> float:
@@ -688,44 +838,37 @@ def phase_train(workdir: str):
     return {"step_ms": ms_k, "lowrank_step_ms": ms_p, "peak_gib": peak_gib}
 
 
-def phase_train_cli(workdir: str):
-    """The main path of the training slice: the train CLI in a subprocess on
-    a synthetic tree; its best tag then serves on the card. Returns the
-    run's launches."""
-    import torch
-
-    from eelunet_tpu_torch.config import ModelConfig
-    from eelunet_tpu_torch.data.synthetic import write_synthetic_tree
-    from eelunet_tpu_torch.inference import Predictor
-
-    t0 = time.monotonic()
-    tree = write_synthetic_tree(os.path.join(workdir, "tree"), n_train=24, n_test=8,
-                                image_size=(512, 512), seed=SEED)
-    save, logs = os.path.join(workdir, "ckpt"), os.path.join(workdir, "runs")
-    cmd = [sys.executable, "-m", "eelunet_tpu_torch.cli.train", "--model_type", "eelunet",
-           "--data_dir", tree, "--image_size", "512", "--batch_size", "8",
-           "--set", "model.dtype=bfloat16", "--epochs", "2", "--seed", str(SEED),
-           "--save_dir", save, "--log_dir", logs]
+def _cli(phase: str, module: str, args):
+    """Run ``python -m eelunet_tpu_torch.cli.<module> args`` to its end;
+    print its progress lines. Returns (stdout, its kernel launches, wall s)."""
+    cmd = [sys.executable, "-m", f"eelunet_tpu_torch.cli.{module}", *args]
     t1 = time.monotonic()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
                           cwd=os.path.dirname(os.path.abspath(__file__)))
     wall = time.monotonic() - t1
-    check(proc.returncode == 0, f"cli.train exited with {proc.returncode}:\n"
+    check(proc.returncode == 0, f"cli.{module} exited with {proc.returncode}:\n"
           + (proc.stdout + proc.stderr)[-4000:])
     for line in proc.stdout.splitlines():
-        if line.startswith(("Epoch [", "Device:", "Training complete", "high-pass")):
-            print(f"[7] {line}")
-    launch_lines = [ln for ln in proc.stdout.splitlines()
-                    if ln.startswith("high-pass kernel launches: ")]
-    check(len(launch_lines) == 1, "cli.train printed no launch counts")
-    launches = json.loads(launch_lines[0].split(": ", 1)[1])
-    # 21 train images (90%) -> 2 steps of 8 per epoch; 3 val images and 8
-    # test images -> one forward each per epoch.
-    steps, forwards = 2 * 2, 2 * (2 + 1 + 1)
-    want = {k: 2 * (forwards if k in FWD else steps) for k in KERNELS}
-    check(launches == want, f"cli.train launches {launches}, want {want}")
+        if line.startswith(("Epoch [", "Device:", "Training complete", "kernel launches",
+                            "Loaded", "Dice", "Mean IoU")):
+            print(f"[{phase}] {line}")
+    launch_lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("kernel launches: ")]
+    check(len(launch_lines) == 1, f"cli.{module} printed no launch counts")
+    return proc.stdout, json.loads(launch_lines[0].split(": ", 1)[1]), wall
 
-    root = os.path.join(save, "eelunet")
+
+def _train_args(tree: str, save: str, logs: str):
+    return ["--model_type", "eelunet", "--data_dir", tree, "--image_size", "512",
+            "--batch_size", "8", "--set", "model.dtype=bfloat16", "--epochs", "2",
+            "--seed", str(SEED), "--save_dir", save, "--log_dir", logs]
+
+
+# A cli.train run on phase 7's tree: 21 train images (90%) -> 2 steps of 8
+# per epoch; 3 val images and 8 test images -> one forward each per epoch.
+CLI_STEPS, CLI_FORWARDS = 2 * 2, 2 * (2 + 1 + 1)
+
+
+def _history(root: str):
     with open(os.path.join(root, "loss_history.json")) as f:
         hist = json.load(f)
     check(len(hist["train_loss"]) == 2 and all(np.isfinite(hist["train_loss"] + hist["val_loss"])),
@@ -735,6 +878,30 @@ def phase_train_cli(workdir: str):
     best = os.path.join(root, "eelunet_best.npz")
     check(os.path.isfile(best) and os.path.isfile(os.path.join(root, "eelunet_last", "state.pt")),
           f"checkpoints: {sorted(os.listdir(root))}")
+    return hist, best
+
+
+def phase_train_cli(workdir: str):
+    """The main path of the training slice: the train CLI in a subprocess on
+    a synthetic tree; its best tag then serves on the card. Returns the
+    run's launches and the tree."""
+    import torch
+
+    from eelunet_tpu_torch.config import ModelConfig
+    from eelunet_tpu_torch.data.synthetic import write_synthetic_tree
+    from eelunet_tpu_torch.inference import Predictor
+
+    t0 = time.monotonic()
+    tree = write_synthetic_tree(os.path.join(workdir, "tree"), n_train=24, n_test=8,
+                                image_size=(512, 512), seed=SEED)
+    t1 = time.monotonic()
+    save, logs = os.path.join(workdir, "ckpt"), os.path.join(workdir, "runs")
+    _, launches, wall = _cli("7", "train", _train_args(tree, save, logs))
+    want = {k: 2 * (CLI_FORWARDS if k in FWD else CLI_STEPS) for k in HIGHPASS}
+    want.update(fused_canny=0, conv3x3=0)
+    check(launches == want, f"cli.train launches {launches}, want {want}")
+    root = os.path.join(save, "eelunet")
+    _, best = _history(root)
 
     from PIL import Image
 
@@ -751,7 +918,105 @@ def phase_train_cli(workdir: str):
           f"served on {pred.device}: mean prob {float(probs.mean()):.4f}", flush=True)
     del pred
     torch.cuda.empty_cache()
-    return launches
+    return launches, tree
+
+
+CANNY_FLAGS = ("data.add_canny_edge=true", "data.canny_enhance=true")
+
+
+def phase_canny_path(workdir: str, tree: str, plain_step_ms: float):
+    """The Canny path: in-process step, chain and eval timing and the
+    hysteresis iterations, then cli.train and cli.evaluate with both flags.
+    Returns the two runs' launches, summed."""
+    import torch
+
+    from eelunet_tpu_torch.config import TrainConfig, apply_overrides
+    from eelunet_tpu_torch.data.augment import canny_enhance, make_input_preprocess
+    from eelunet_tpu_torch.ops import edge_cuda
+    from eelunet_tpu_torch.ops.edge import hysteresis_fixpoint, rgb_to_grayscale
+    from eelunet_tpu_torch.train.trainer import Trainer, make_eval_step, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = apply_overrides(TrainConfig(), [
+        "model.name=eelunet", "model.dtype=bfloat16", f"model.fft_mask_range={MASK_RANGE}",
+        "data.image_size=512", "data.batch_size=8", f"seed={SEED}",
+        f"save_dir={workdir}/ckpt_canny_inproc", *CANNY_FLAGS])
+    trainer = Trainer(cfg, device="cuda")
+    check(trainer.cfg.model.in_channels == 4, "the edge channel did not widen the input")
+    state = trainer.init_state(steps_per_epoch=6)
+    step = make_train_step(trainer.loss_fn, trainer.amp_dtype)
+    eval_step = make_eval_step(trainer.meta, cfg.threshold, cfg.tta, trainer.amp_dtype)
+    preprocess = make_input_preprocess(cfg.data)
+    raw = [(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+           for x, y in _train_batches(2, 8, SEED + 4)]
+    edge_cuda.reset_launches()
+    prepped = [preprocess(*b) for b in raw]
+    torch.cuda.synchronize()
+    check(edge_cuda.LAUNCHES == {"fused_canny": 4}, f"chain launches: {edge_cuda.LAUNCHES}")
+    check(tuple(prepped[0][0].shape) == (8, 512, 512, 4), f"input {prepped[0][0].shape}")
+
+    # Hysteresis steps to the fixpoint, per batch, for each of the chain's
+    # two Canny passes (on the raw image, then on the enhanced one).
+    iters = []
+    with torch.inference_mode():
+        for u8, _ in raw:
+            x = u8.float() / 255.0
+            for imgs in (x, canny_enhance(x, cfg.data.canny_enhance_alpha)):
+                nms = edge_cuda.fused_canny(rgb_to_grayscale(imgs).contiguous(), mode="improve")
+                lo, hi = 100.0 / 255.0, 200.0 / 255.0
+                iters.append(hysteresis_fixpoint(nms >= hi, (nms >= lo) & (nms < hi))[1])
+
+    def events_ms(fn, n: int) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(n):
+            fn(i)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    losses = [step(state, *prepped[i % 2])[0] for i in range(2)]  # warm
+    eval_step(state, *prepped[1])
+    whole = events_ms(lambda i: step(state, *preprocess(*raw[i % 2])), 4)
+    alone = events_ms(lambda i: step(state, *prepped[i % 2]), 4)
+    chain = events_ms(lambda i: preprocess(*raw[i % 2]), 4)
+    ev = events_ms(lambda i: eval_step(state, *preprocess(*raw[i % 2])), 4)
+    losses = [v.item() for v in losses]
+    check(all(np.isfinite(losses)), f"non-finite Canny-path loss: {losses}")
+    print(f"[9] Canny train step 512^2 b8 bf16, 4 input channels: {whole:.2f} ms/step with the "
+          f"input chain ({8e3 / whole:.1f} img/s): chain {chain:.2f} ms + step {alone:.2f} ms; "
+          f"phase 6's step without the augmentations {plain_step_ms:.2f} ms; eval step with "
+          f"the chain {ev:.2f} ms/batch; hysteresis steps per batch {iters} (enhance, edge "
+          f"per batch); losses {[round(v, 4) for v in losses]}", flush=True)
+    del state, trainer, raw, prepped
+    torch.cuda.empty_cache()
+
+    flags = [a for f in CANNY_FLAGS for a in ("--set", f)]
+    save, logs = os.path.join(workdir, "ckpt_canny"), os.path.join(workdir, "runs_canny")
+    _, trained, wall = _cli("9", "train", _train_args(tree, save, logs) + flags)
+    want = {k: 2 * (CLI_FORWARDS if k in FWD else CLI_STEPS) for k in HIGHPASS}
+    # Every batch the run feeds (train, val, test) goes through the chain
+    # once: two launches of kernel 5 per forward.
+    want.update(fused_canny=2 * CLI_FORWARDS, conv3x3=0)
+    check(trained == want, f"Canny cli.train launches {trained}, want {want}")
+    hist, best = _history(os.path.join(save, "eelunet"))
+    out, evaluated, wall_e = _cli("9", "evaluate", [
+        "--model_type", "eelunet", "--data_dir", tree, "--image_size", "512",
+        "--batch_size", "8", "--set", "model.dtype=bfloat16", "--seed", str(SEED),
+        "--checkpoint", best, *flags])
+    want_e = {k: 2 if k in FWD else 0 for k in HIGHPASS}
+    want_e.update(fused_canny=2, conv3x3=0)
+    check(evaluated == want_e, f"Canny cli.evaluate launches {evaluated}, want {want_e}")
+    metrics = json.loads(next(ln for ln in out.splitlines()
+                              if ln.startswith("metrics: ")).split(": ", 1)[1])
+    recorded = hist["metrics"][int(np.argmin(hist["val_loss"]))]
+    diff = max(abs(metrics[k] - recorded[k]) for k in recorded)
+    print(f"[9] Canny cli.train {wall:.1f} s wall for 2 epochs, launches {trained}; "
+          f"cli.evaluate on the best tag {wall_e:.1f} s wall, launches {evaluated}; its metrics "
+          f"vs the training run's for that tag: max|d| {diff:.3e} (dice {metrics['dice']:.4f}, "
+          f"boundary_f1 {metrics['boundary_f1']:.4f})", flush=True)
+    check(metrics == recorded, f"cli.evaluate {metrics} != the training run's {recorded}")
+    return {k: trained[k] + evaluated[k] for k in KERNELS}
 
 
 def main() -> int:
@@ -764,6 +1029,7 @@ def main() -> int:
     phase_build()
     record = phase_kernels()
     record.update(phase_bwd_kernels())
+    record.update(phase_canny_conv_kernels())
     cfg = ModelConfig(name="eelunet", dtype="bfloat16", fft_mask_range=MASK_RANGE)
     with tempfile.TemporaryDirectory(prefix="eelunet_smoke_") as workdir:
         ckpt = os.path.join(workdir, "eelunet_random.npz")
@@ -771,9 +1037,10 @@ def main() -> int:
         served = phase_serve(ckpt, workdir)
         phase_model(sd, cfg)
         del sd
-        phase_train(workdir)
-        trained = phase_train_cli(workdir)
-    launches = {k: served[k] + trained[k] for k in KERNELS}
+        step = phase_train(workdir)
+        trained, tree = phase_train_cli(workdir)
+        canny = phase_canny_path(workdir, tree, step["step_ms"])
+    launches = {k: served.get(k, 0) + trained[k] + canny[k] for k in KERNELS}
     print(f"[8] all phases passed in {time.monotonic() - t0:.1f} s")
     print(card)
     kernels = []

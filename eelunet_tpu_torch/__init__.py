@@ -1,11 +1,13 @@
 """eelunet_tpu_torch — the PyTorch + CUDA port of ``eelunet_tpu``.
 
-It serves the flagship EELUnet (binary, BN folded, bf16 compute) and trains
-it (bf16 autocast on f32 weights) on an NVIDIA H100. The four FFT high-pass
-kernels that the JAX package writes in Pallas for the TPU, forward and
-backward, are hand-written CUDA C++ kernels here (``csrc/highpass.cu``,
-``csrc/highpass_bwd.cu``), each with a plain PyTorch twin that runs on the
-CPU.
+It serves the flagship EELUnet (binary, BN folded, bf16 compute), trains
+it (bf16 autocast on f32 weights), with or without the Canny augmentations,
+and evaluates it on an NVIDIA H100. Every kernel that the JAX package writes
+in Pallas for the TPU is a hand-written CUDA C++ kernel here: the FFT
+high-pass forward and backward (``csrc/highpass.cu``,
+``csrc/highpass_bwd.cu``), the fused Canny stencil (``csrc/canny.cu``) and
+the direct 3x3 convolution (``csrc/conv3x3.cu``), each with a plain PyTorch
+twin that runs on the CPU.
 Modules mirror the JAX package's file names; the public surfaces keep its
 layout (``Predictor`` takes (B,H,W,3) numpy and returns (B,H,W,1)) so the
 two packages can be compared on the same inputs.

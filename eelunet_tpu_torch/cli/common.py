@@ -6,7 +6,7 @@ the datasets and loaders of a config (counterpart of
 from __future__ import annotations
 
 import argparse
-from typing import Tuple
+from typing import Dict, Tuple
 
 from eelunet_tpu_torch.config import TrainConfig, apply_overrides, config_from_json
 from eelunet_tpu_torch.data.dataset import SegmentationFolderDataset, train_val_split
@@ -56,12 +56,21 @@ def load_config(args) -> TrainConfig:
     return apply_overrides(cfg, ov)
 
 
+def wants_raw_images(d) -> bool:
+    """True when a Canny augmentation is on: the datasets then yield raw
+    [0,1] RGB and normalisation moves into the device-side chain
+    (``data/augment.make_augment_fn``)."""
+    return bool(d.add_canny_edge or d.canny_enhance)
+
+
 def make_folder_dataset(d, split: str, num_classes: int = 1) -> SegmentationFolderDataset:
-    """Dataset for one split, honouring the uint8 device feed and
-    multi-class id masks."""
+    """Dataset for one split, honouring the augmentations' raw images, the
+    uint8 device feed and multi-class id masks. Every CLI builds its datasets
+    here, so the flags act alike in each."""
     return SegmentationFolderDataset(
         d.data_dir, split, d.image_size, d.normalize_mean, d.normalize_std,
-        as_uint8=bool(d.uint8_feed), multiclass=num_classes > 1)
+        normalize=not wants_raw_images(d), as_uint8=bool(d.uint8_feed),
+        multiclass=num_classes > 1)
 
 
 def build_loaders(cfg: TrainConfig) -> Tuple[DataLoader, DataLoader, DataLoader]:
@@ -84,3 +93,11 @@ def build_loaders(cfg: TrainConfig) -> Tuple[DataLoader, DataLoader, DataLoader]
                           num_workers=d.num_workers, indices=idx)
 
     return mk(full, tr_idx, True), mk(full, va_idx, False), mk(test, None, False)
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Launches of every hand-written kernel in this process since its last
+    reset; all 0 on the CPU, where the plain twins run."""
+    from eelunet_tpu_torch.ops import conv_cuda, edge_cuda, fft_cuda
+
+    return {**fft_cuda.LAUNCHES, **edge_cuda.LAUNCHES, **conv_cuda.LAUNCHES}

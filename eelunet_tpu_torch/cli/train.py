@@ -14,7 +14,12 @@ from __future__ import annotations
 
 import json
 
-from eelunet_tpu_torch.cli.common import base_parser, build_loaders, load_config
+from eelunet_tpu_torch.cli.common import (
+    base_parser,
+    build_loaders,
+    kernel_launches,
+    load_config,
+)
 from eelunet_tpu_torch.config import apply_overrides, config_to_json
 
 
@@ -52,11 +57,7 @@ def main(argv=None):
     print(f"Device: {trainer.device}; criterion: {trainer.loss_name}; "
           f"{len(train_loader)} steps per epoch", flush=True)
     trainer.fit(train_loader, val_loader, test_loader)
-    from eelunet_tpu_torch.ops.fft_cuda import LAUNCHES
-
-    # What the run launched of the hand-written high-pass kernels (all 0 on
-    # the CPU, where their plain twins run).
-    print("high-pass kernel launches: " + json.dumps(LAUNCHES), flush=True)
+    print("kernel launches: " + json.dumps(kernel_launches()), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,15 @@
 """Device-side input preprocessing and augmentation (counterpart of
-``eelunet_tpu/data/augment.py:59-161``).
+``eelunet_tpu/data/augment.py``; reference augmentation/AddCannyEdge.py:8-41,
+augmentation/CannyEnhance.py:7-44).
 
 ``make_input_preprocess`` turns the uint8 feed into model input on the
-device; ``random_flip_batch`` flips (image, mask) pairs per sample. The Canny
-augmentations need the fused Canny kernel (TPU kernel 5, not ported yet) and
-raise ``NotImplementedError`` (``ROADMAP.md``).
+device; ``random_flip_batch`` flips (image, mask) pairs per sample. The two
+Canny augmentations, ``canny_enhance`` and ``add_canny_edge``, run the
+improved Canny (``ops/edge.canny_edge_improve``) on the whole batch: on a
+CUDA tensor its blur, Sobel and non-max suppression run in kernel 5. They
+work on unnormalised [0, 1] RGB, so when either is on the datasets yield raw
+images (``cli/common.wants_raw_images``) and ``make_augment_fn`` normalises
+after them.
 """
 
 from __future__ import annotations
@@ -12,6 +17,12 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from eelunet_tpu_torch.ops.edge import canny_edge_improve, rgb_to_grayscale
+
+# cv2.Canny(100, 200) thresholds on a 0-255 scale -> [0,1] scale.
+_CV2_LOW = 100.0 / 255.0
+_CV2_HIGH = 200.0 / 255.0
 
 
 def normalize_imagenet(
@@ -25,18 +36,21 @@ def normalize_imagenet(
     return (images - m) / s
 
 
-def _canny_not_ported():
-    raise NotImplementedError("the Canny augmentations (data.add_canny_edge, "
-                              "data.canny_enhance) need the fused Canny kernel, not ported "
-                              "yet; see ROADMAP.md")
-
-
 def add_canny_edge(images: torch.Tensor) -> torch.Tensor:
-    _canny_not_ported()
+    """Append the Canny edge map of the grayscale image as a 4th channel
+    (AddCannyEdge.py:8-41): (N,H,W,3) in [0,1] -> (N,H,W,4)."""
+    edges = canny_edge_improve(rgb_to_grayscale(images), _CV2_LOW, _CV2_HIGH)
+    return torch.cat([images, edges], dim=-1)
 
 
-def canny_enhance(images: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
-    _canny_not_ported()
+def canny_enhance(images: torch.Tensor, alpha: float = 0.2,
+                  edge_color: Sequence[float] = (1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Blend a coloured edge overlay into the image (CannyEnhance.py:7-44):
+    clip(image + alpha * edges * edge_color, 0, 1), cv2.addWeighted's
+    semantics."""
+    edges = canny_edge_improve(rgb_to_grayscale(images), _CV2_LOW, _CV2_HIGH)
+    color = torch.tensor(edge_color, dtype=images.dtype, device=images.device).view(1, 1, 1, 3)
+    return torch.clamp(images + alpha * (edges * color), 0.0, 1.0)
 
 
 def random_flip_batch(generator: torch.Generator, images: torch.Tensor, labels: torch.Tensor):
@@ -54,18 +68,46 @@ def random_flip_batch(generator: torch.Generator, images: torch.Tensor, labels: 
     return images, labels
 
 
+def make_augment_fn(data_cfg):
+    """The device-side input chain of a DataConfig, or None when both Canny
+    flags are off: (N,H,W,3) raw [0,1] RGB -> model input. The
+    ``canny_enhance`` blend, then the ``add_canny_edge`` 4th channel, then
+    ImageNet normalisation of the RGB channels only: the edge channel is a
+    {0,1} map and stays as it is (the reference's 3-channel statistics
+    never covered a 4th channel)."""
+    enhance = bool(data_cfg.canny_enhance)
+    add_edge = bool(data_cfg.add_canny_edge)
+    if not (enhance or add_edge):
+        return None
+    alpha = float(data_cfg.canny_enhance_alpha)
+    mean = tuple(data_cfg.normalize_mean)
+    std = tuple(data_cfg.normalize_std)
+
+    def augment(images: torch.Tensor) -> torch.Tensor:
+        if enhance:
+            images = canny_enhance(images, alpha)
+        if add_edge:
+            images = add_canny_edge(images)
+        rgb = normalize_imagenet(images[..., :3], mean, std)
+        return torch.cat([rgb, images[..., 3:]], dim=-1) if add_edge else rgb
+
+    return augment
+
+
 def make_input_preprocess(data_cfg, num_classes: int = 1):
     """The device-side (images, labels) preprocess for a DataConfig
-    (``augment.py:114-161`` in the JAX package):
+    (``augment.py:125-161`` in the JAX package):
 
-    - uint8 images (``data.uint8_feed``): u8 -> f32 / 255 -> ImageNet
-      normalisation; uint8 masks -> f32 / 255 (binary 0/255 -> {0, 1});
-    - float images: already normalised on the host; passed through."""
-    if data_cfg.add_canny_edge or data_cfg.canny_enhance:
-        _canny_not_ported()
+    - uint8 images (``data.uint8_feed``): u8 -> f32 / 255, then the augment
+      chain, or ImageNet normalisation when it is off; uint8 masks -> f32 /
+      255 (binary 0/255 -> {0, 1});
+    - float images with the augment chain on: raw [0,1] RGB -> the chain;
+    - float images, chain off: already normalised on the host; passed
+      through."""
     if num_classes > 1:
         raise NotImplementedError("multi-class masks (model.out_channels > 1) are not ported "
                                   "yet; see ROADMAP.md")
+    augment = make_augment_fn(data_cfg)
     mean = tuple(data_cfg.normalize_mean)
     std = tuple(data_cfg.normalize_std)
 
@@ -73,7 +115,11 @@ def make_input_preprocess(data_cfg, num_classes: int = 1):
         if labels.dtype == torch.uint8:
             labels = labels.float() / 255.0
         if images.dtype == torch.uint8:
-            images = normalize_imagenet(images.float() / 255.0, mean, std)
+            images = images.float() / 255.0
+            images = augment(images) if augment is not None else normalize_imagenet(
+                images, mean, std)
+        elif augment is not None:
+            images = augment(images)
         return images, labels
 
     return preprocess

@@ -19,6 +19,7 @@ the plain reference.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -59,8 +60,6 @@ def check_supported(cfg) -> None:
         todo.append("packed datasets (data.packed)")
     if d.device_cache:
         todo.append("the device-resident dataset (data.device_cache)")
-    if d.add_canny_edge or d.canny_enhance:
-        todo.append("the Canny augmentations (data.add_canny_edge, data.canny_enhance)")
     if cfg.mesh.data_axis not in (-1, 1) or cfg.mesh.model_axis > 1 or cfg.mesh.spatial_axis > 1:
         todo.append("multi-GPU meshes (mesh.*_axis > 1)")
     if cfg.profile_steps > 0:
@@ -204,6 +203,9 @@ class Trainer:
 
     def __init__(self, cfg, device=None, widths=None):
         check_supported(cfg)
+        if cfg.data.add_canny_edge and cfg.model.in_channels == 3:
+            # The edge map is a 4th input channel (AddCannyEdge.py:8-41).
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, in_channels=4))
         self.cfg = cfg
         self.device = resolve_device(device)
         self._preprocess = make_input_preprocess(cfg.data, cfg.model.out_channels)

@@ -1,5 +1,6 @@
-"""The hand-written CUDA high-pass kernels against their plain PyTorch twins,
-on the card. Every test here needs a CUDA device and skips without one; on
+"""The hand-written CUDA kernels (the four high-pass kernels, the Canny
+stencil and the 3x3 convolution) against their plain PyTorch twins, on the
+card. Every test here needs a CUDA device and skips without one; on
 the H100 run ``python -m pytest -q tests/test_torch_port_cuda.py`` (this file
 imports no JAX, so it runs where only the port is installed).
 """
@@ -9,8 +10,10 @@ from __future__ import annotations
 import pytest
 import torch
 
+from eelunet_tpu_torch.config import TrainConfig, apply_overrides
+from eelunet_tpu_torch.data.augment import make_input_preprocess
 from eelunet_tpu_torch.models.eelunet import high_pass_fft_reference
-from eelunet_tpu_torch.ops import fft_cuda
+from eelunet_tpu_torch.ops import conv_cuda, edge, edge_cuda, fft_cuda
 from eelunet_tpu_torch.ops.fft import high_pass_fft_lowrank
 
 pytestmark = pytest.mark.cuda
@@ -118,3 +121,89 @@ def test_function_grad_matches_lowrank_autograd(cuda, dtype, tol):
     assert set(fft_cuda.LAUNCHES.values()) == {1}
     (want,) = torch.autograd.grad(high_pass_fft_lowrank(x, 20), x, g)
     assert got.dtype == dtype and _rel_l2(got, want) <= tol
+
+
+# (N, H, W): tiles of 32 x 16 that the image does not fill, ragged on both
+# axes, a single tile, and the training path's width.
+CANNY_SHAPES = [(2, 45, 38), (1, 70, 41), (3, 16, 32), (1, 2, 5), (2, 100, 130), (1, 64, 512)]
+
+
+def _disks(n, h, w, device):
+    yy, xx = torch.meshgrid(torch.arange(h, device=device), torch.arange(w, device=device),
+                            indexing="ij")
+    r = 0.3 * min(h, w)
+    return torch.stack([(((yy - h / 2 - i) ** 2 + (xx - w / 2) ** 2) < r * r).float()
+                        for i in range(n)])[..., None]
+
+
+@pytest.mark.parametrize("mode", ["zero", "improve"])
+@pytest.mark.parametrize("shape", CANNY_SHAPES)
+def test_canny_kernel_matches_plain_twin(cuda, shape, mode):
+    """Kernel 5 against ``fused_canny_reference`` on the card. Both round
+    every product and sum alike (no FMA contraction in the kernel), so
+    random fields agree exactly; disks, whose blurred edges sit on >= ties,
+    within 1% of pixels (chip_smoke.py reports the count)."""
+    n, h, w = shape
+    g = torch.Generator(device=cuda).manual_seed(n * h + w)
+    x = torch.rand((n, h, w, 1), generator=g, device=cuda)
+    edge_cuda.reset_launches()
+    got = edge_cuda.fused_canny(x, 0.3, mode=mode)
+    torch.cuda.synchronize()
+    assert edge_cuda.LAUNCHES == {"fused_canny": 1}
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    want = edge_cuda.fused_canny_reference(x, 0.3, mode=mode)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got > 0, want > 0)
+    d = _disks(n, h, w, cuda)
+    got, want = edge_cuda.fused_canny(d, mode=mode), edge_cuda.fused_canny_reference(d, mode=mode)
+    assert ((got > 0) != (want > 0)).float().mean().item() <= 0.01
+
+
+def test_canny_ops_launch_the_kernel(cuda):
+    """``canny_edge`` (mode zero) and ``canny_edge_improve`` (mode improve)
+    on a CUDA tensor launch kernel 5 once per channel plane batch, return
+    the input's dtype, and agree with their CPU chains up to ties; the
+    Canny input chain launches it twice per batch."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.rand((2, 40, 52, 1), generator=g, device=cuda)
+    edge_cuda.reset_launches()
+    zero = edge.canny_edge(x.to(torch.bfloat16))
+    improve = edge.canny_edge_improve(x, 0.3, 0.6)
+    torch.cuda.synchronize()
+    assert edge_cuda.LAUNCHES == {"fused_canny": 2} and zero.dtype == torch.bfloat16
+    assert (zero.float().cpu() != edge.canny_edge(x.to(torch.bfloat16).cpu()).float()).float() \
+        .mean().item() <= 0.01
+    assert (improve.cpu() != edge.canny_edge_improve(x.cpu(), 0.3, 0.6)).float().mean().item() \
+        <= 0.01
+    cfg = apply_overrides(TrainConfig(), ["data.add_canny_edge=true", "data.canny_enhance=true"])
+    u8 = (torch.rand((2, 40, 52, 3), generator=g, device=cuda) * 255).to(torch.uint8)
+    edge_cuda.reset_launches()
+    images, _ = make_input_preprocess(cfg.data)(u8, u8[..., :1])
+    torch.cuda.synchronize()
+    assert edge_cuda.LAUNCHES == {"fused_canny": 2} and images.shape == (2, 40, 52, 4)
+
+
+# (B, H, W, Cin, Cout): enc1's RGB input, W ragged against the 64-pixel
+# block, Cout not a multiple of the 64-channel block, the decoder widths.
+CONV_CASES = [(2, 16, 24, 3, 32), (1, 33, 70, 64, 64), (2, 8, 64, 128, 64), (1, 5, 7, 16, 80)]
+
+
+@pytest.mark.parametrize("affine,relu", [(False, False), (True, True)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_conv3x3_kernel_matches_plain_twin(cuda, case, dtype, tol, affine, relu):
+    """Kernel 6 against ``conv3x3_reference`` (cuDNN in float32, TF32 off),
+    relative L2: float32 differs by summation order, bfloat16 by one
+    rounding of the output."""
+    b, h, w, cin, cout = case
+    x = _x((b, h, w, cin), dtype, cuda, seed=cin)
+    wt = (_x((3, 3, cin, cout), torch.float32, cuda, seed=cout) * 0.1).to(dtype)
+    scale = _x((cout,), torch.float32, cuda, seed=1) if affine else None
+    shift = _x((cout,), torch.float32, cuda, seed=2) if affine else None
+    conv_cuda.reset_launches()
+    got = conv_cuda.conv3x3(x, wt, scale, shift, relu=relu)
+    torch.cuda.synchronize()
+    assert conv_cuda.LAUNCHES == {"conv3x3": 1}
+    assert got.dtype == dtype and got.shape == (b, h, w, cout)
+    want = conv_cuda.conv3x3_reference(x, wt, scale, shift, relu=relu)
+    assert _rel_l2(got, want) <= tol

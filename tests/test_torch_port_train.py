@@ -9,38 +9,28 @@ import dataclasses
 import json
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from eelunet_tpu.config import LossConfig as JaxLossConfig
-from eelunet_tpu.config import OptimizerConfig as JaxOptimizerConfig
 from eelunet_tpu.data.synthetic import make_blob_sample
-from eelunet_tpu.models.eelunet import EELUnet as JaxEELUnet
-from eelunet_tpu.registry import MODEL_REGISTRY as JAX_MODEL_REGISTRY
-from eelunet_tpu.train import trainer as jax_trainer
-from eelunet_tpu.train.state import TrainState as JaxTrainState
-from eelunet_tpu.train.state import build_optimizer as jax_build_optimizer
 from eelunet_tpu_torch.cli import train as train_cli
-from eelunet_tpu_torch.config import ModelConfig, OptimizerConfig, TrainConfig, apply_overrides
+from eelunet_tpu_torch.config import TrainConfig, apply_overrides
 from eelunet_tpu_torch.data.synthetic import write_synthetic_tree
 from eelunet_tpu_torch.inference import Predictor
 from eelunet_tpu_torch.models.convert import from_flax_variables
-from eelunet_tpu_torch.registry import MODEL_REGISTRY, create_model
-from eelunet_tpu_torch.train.state import TrainState, build_optimizer
-from eelunet_tpu_torch.train.trainer import (
-    Trainer,
-    forward_loss,
-    make_loss_fn,
-    make_train_step,
+from eelunet_tpu_torch.train.trainer import Trainer, forward_loss, make_train_step
+from torch_port_helpers import (
+    CFG,
+    LR,
+    MASK_RANGE,
+    NARROW,
+    STEPS,
+    edge_loss_fn,
+    narrow_flax_variables,
+    paired_train_steps,
+    port_state,
 )
-from torch_port_helpers import MASK_RANGE, NARROW, narrow_flax_variables
-
-LR = 1e-4
-STEPS = 3
-CFG = ModelConfig(name="eelunet", fft_mask_range=MASK_RANGE)
 
 
 def _batches(seed=0, n=STEPS, batch=2, size=64):
@@ -56,90 +46,10 @@ def _batches(seed=0, n=STEPS, batch=2, size=64):
     return out
 
 
-def _port_state(sd, lr=LR, spe=STEPS, dtype=torch.float32):
-    model, _ = create_model(CFG, widths=NARROW)
-    model = model.to(dtype=dtype, memory_format=torch.channels_last)
-    missing, unexpected = model.load_state_dict(sd, strict=False)
-    assert not unexpected and all(k.endswith("num_batches_tracked") for k in missing)
-    opt, sched = build_optimizer(OptimizerConfig(lr=lr), model.parameters(), spe)
-    return TrainState(model, opt, sched, seed=0)
-
-
-def _loss_fn():
-    from eelunet_tpu_torch.config import LossConfig
-
-    return make_loss_fn("edge_bce_dice", LossConfig(), MODEL_REGISTRY["eelunet"])
-
-
-def _port_index(variables):
-    """Where each element of each port tensor lies in the JAX ``variables``
-    leaves, concatenated in tree order. ``from_flax_variables`` moves
-    elements and computes none, so applied to a tree of element numbers it
-    gives a map that takes any tree of that structure over exactly, in any
-    dtype (it converts through float32, exact for element numbers < 2**24)."""
-    leaves, treedef = jax.tree_util.tree_flatten(variables)
-    start = np.cumsum([0] + [np.size(leaf) for leaf in leaves])
-    assert start[-1] < 2 ** 24
-    numbered = treedef.unflatten([np.arange(a, a + np.size(leaf)).reshape(np.shape(leaf))
-                                  for a, leaf in zip(start, leaves)])
-    return {k: v.long().numpy() for k, v in from_flax_variables(numbered).items()
-            if v.is_floating_point()}
-
-
-def _port_tree(variables, index):
-    flat = np.concatenate([np.ravel(np.asarray(leaf))
-                           for leaf in jax.tree_util.tree_leaves(variables)])
-    return {k: torch.from_numpy(flat[ix]) for k, ix in index.items()}
-
-
 def _paired(float64: bool):
-    """STEPS paired train steps, 64x64, batch 2, from the same narrow
-    weights, in float32 or float64: the JAX step on its low-rank high-pass,
-    the port's step on the high-pass Function (plain twins on the CPU).
-    Also the first step's gradients: the port's ``.grad``, and JAX's from
-    its Adam first moment after one step, (1 - b1) (g + wd p)."""
-    variables = narrow_flax_variables()
-    index = _port_index(variables)
-    batches = _batches()
-    wd = OptimizerConfig().weight_decay
-    with jax.enable_x64(float64):
-        jdt = jnp.float64 if float64 else jnp.float32
-        model = JaxEELUnet(mask_range=MASK_RANGE, widths=NARROW, highpass_impl="lowrank",
-                           **({"dtype": jdt} if float64 else {}))
-        loss_fn = jax_trainer.make_loss_fn("edge_bce_dice", JaxLossConfig(),
-                                           JAX_MODEL_REGISTRY["eelunet"])
-        step = jax_trainer.make_train_step(model, loss_fn, True, donate=False)
-        tx = jax_build_optimizer(JaxOptimizerConfig(lr=LR), STEPS)
-        cast = lambda t: jax.tree_util.tree_map(lambda a: jnp.asarray(a, jdt), t)  # noqa: E731
-        params = cast(variables["params"])
-        jstate = JaxTrainState(params=params, batch_stats=cast(variables["batch_stats"]),
-                               opt_state=tx.init(params), step=jnp.zeros((), jnp.int32),
-                               rng=jax.random.PRNGKey(0), tx=tx)
-        loss_j = []
-        for i, (x, y) in enumerate(batches):
-            jstate, loss, _ = step(jstate, jnp.asarray(x, jdt), jnp.asarray(y, jdt))
-            loss_j.append(float(loss))
-            if i == 0:
-                mu1 = next(s.mu for s in jstate.opt_state if hasattr(s, "mu"))
-                mu1 = _port_tree({"params": jax.device_get(mu1),
-                                  "batch_stats": variables["batch_stats"]}, index)
-        want = _port_tree({"params": jax.device_get(jstate.params),
-                           "batch_stats": jax.device_get(jstate.batch_stats)}, index)
-
-    tdt = torch.float64 if float64 else torch.float32
-    init = {k: v.to(tdt) for k, v in _port_tree(variables, index).items()}
-    pstate = _port_state(init, dtype=tdt)
-    pstep = make_train_step(_loss_fn())
-    loss_t = []
-    for i, (x, y) in enumerate(batches):
-        loss, ok = pstep(pstate, torch.from_numpy(x).to(tdt), torch.from_numpy(y).to(tdt))
-        assert ok
-        loss_t.append(float(loss))
-        if i == 0:
-            grad_t = {k: p.grad.clone() for k, p in pstate.model.named_parameters()}
-    grad_j = {k: mu1[k].to(tdt) / 0.1 - wd * init[k] for k in grad_t}
-    return {"loss_j": np.array(loss_j), "loss_t": np.array(loss_t), "want": want,
-            "pstate": pstate, "init": init, "grad_j": grad_j, "grad_t": grad_t}
+    """STEPS paired train steps on normalised batches (``paired_train_steps``)."""
+    return paired_train_steps(narrow_flax_variables(), [(x, x, y) for x, y in _batches()],
+                              float64)
 
 
 @pytest.fixture(scope="module")
@@ -223,13 +133,14 @@ def test_step_parity_bn_stats(paired_run):
 
 def test_accum_steps_loss_is_mean_of_micro_batches():
     sd = from_flax_variables(narrow_flax_variables())
-    state = _port_state(sd)
+    state = port_state(sd)
     (x, y), = _batches(seed=3, n=1, batch=4)
     x, y = torch.from_numpy(x), torch.from_numpy(y)
     ref = copy.deepcopy(state.model).train()
     with torch.no_grad():
-        micro = [forward_loss(ref, _loss_fn(), x[i:i + 2], y[i:i + 2]).item() for i in (0, 2)]
-    loss, ok = make_train_step(_loss_fn(), accum_steps=2)(state, x, y)
+        micro = [forward_loss(ref, edge_loss_fn(), x[i:i + 2], y[i:i + 2]).item()
+                 for i in (0, 2)]
+    loss, ok = make_train_step(edge_loss_fn(), accum_steps=2)(state, x, y)
     assert ok and state.step == 1
     np.testing.assert_allclose(loss.item(), np.mean(micro), rtol=1e-6)
     # BN statistics updated once per micro-batch, as two sequential forwards
@@ -243,11 +154,11 @@ def test_remat_step_equals_plain_step():
     """Recomputing the forward in the backward changes neither the update
     nor the BN statistics (updated once, not again by the recompute)."""
     sd = from_flax_variables(narrow_flax_variables())
-    plain, remat = _port_state(sd), _port_state(sd)
+    plain, remat = port_state(sd), port_state(sd)
     (x, y), = _batches(seed=5, n=1)
     x, y = torch.from_numpy(x), torch.from_numpy(y)
-    loss_p, _ = make_train_step(_loss_fn())(plain, x, y)
-    loss_r, _ = make_train_step(_loss_fn(), remat=True)(remat, x, y)
+    loss_p, _ = make_train_step(edge_loss_fn())(plain, x, y)
+    loss_r, _ = make_train_step(edge_loss_fn(), remat=True)(remat, x, y)
     assert loss_r.item() == loss_p.item()
     want = plain.model.state_dict()
     for k, v in remat.model.state_dict().items():
@@ -256,8 +167,8 @@ def test_remat_step_equals_plain_step():
 
 def test_nonfinite_guard_skips_the_update():
     sd = from_flax_variables(narrow_flax_variables())
-    state = _port_state(sd)
-    step = make_train_step(_loss_fn(), skip_nonfinite=True)
+    state = port_state(sd)
+    step = make_train_step(edge_loss_fn(), skip_nonfinite=True)
     (x, y), = _batches(seed=4, n=1)
     x[0, 3, 5, 1] = np.nan
     before = {k: v.clone() for k, v in state.model.state_dict().items()}

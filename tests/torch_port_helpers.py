@@ -1,15 +1,30 @@
 """Shared fixtures of the tests/test_torch_port_*.py files: the narrow
-EELUnet that the JAX package and the PyTorch port are compared on."""
+EELUnet that the JAX package and the PyTorch port are compared on, and
+paired train steps of the two packages from the same weights."""
 
 from __future__ import annotations
 
+import dataclasses
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
+from eelunet_tpu.config import LossConfig as JaxLossConfig
+from eelunet_tpu.config import OptimizerConfig as JaxOptimizerConfig
+from eelunet_tpu.models.eelunet import EELUnet as JaxEELUnet
 from eelunet_tpu.models.torch_port import port_state_dict
-from eelunet_tpu_torch.config import ModelConfig
+from eelunet_tpu.registry import MODEL_REGISTRY as JAX_MODEL_REGISTRY
+from eelunet_tpu.train import trainer as jax_trainer
+from eelunet_tpu.train.state import TrainState as JaxTrainState
+from eelunet_tpu.train.state import build_optimizer as jax_build_optimizer
+from eelunet_tpu_torch.config import LossConfig, ModelConfig, OptimizerConfig
 from eelunet_tpu_torch.inference import random_state_dict
-from eelunet_tpu_torch.models.convert import to_upstream_state_dict
+from eelunet_tpu_torch.models.convert import from_flax_variables, to_upstream_state_dict
+from eelunet_tpu_torch.registry import MODEL_REGISTRY, create_model
+from eelunet_tpu_torch.train.state import TrainState, build_optimizer
+from eelunet_tpu_torch.train.trainer import make_loss_fn, make_train_step
 
 # Channel widths of the narrow test model (the JAX EELUnet's ``widths`` groups).
 NARROW = tuple(sorted({
@@ -24,15 +39,18 @@ NARROW = tuple(sorted({
 # At the default 20 the 32x32 high-pass site would have 2m >= H, and the mask
 # would zero the whole spectrum.
 MASK_RANGE = 6
+CFG = ModelConfig(name="eelunet", fft_mask_range=MASK_RANGE)
+LR = 1e-4
+STEPS = 3
 
 
-def narrow_flax_variables(seed: int = 0):
+def narrow_flax_variables(seed: int = 0, in_channels: int = 3):
     """Flax variables (numpy trees) of the narrow EELUnet: PyTorch's default
     init from a seeded generator, BN statistics and affines randomised (the
     identity-like init would hide a broken fold or a mis-mapped statistic),
     imported through the JAX package's own upstream-layout importer. No JAX
     tracing is needed to make them."""
-    cfg = ModelConfig(name="eelunet", fft_mask_range=MASK_RANGE)
+    cfg = dataclasses.replace(CFG, in_channels=in_channels)
     sd = random_state_dict(cfg, seed=seed, widths=NARROW)
     rng = np.random.default_rng(seed)
     for k, v in sd.items():
@@ -47,3 +65,89 @@ def narrow_flax_variables(seed: int = 0):
 
 def narrow_input(seed: int = 0, batch: int = 2) -> np.ndarray:
     return np.random.default_rng(seed).standard_normal((batch, 64, 64, 3)).astype(np.float32)
+
+
+def port_state(sd, cfg=CFG, lr=LR, spe=STEPS, dtype=torch.float32) -> TrainState:
+    """A port TrainState of the narrow EELUnet holding ``sd``, Adam at ``lr``."""
+    model, _ = create_model(cfg, widths=NARROW)
+    model = model.to(dtype=dtype, memory_format=torch.channels_last)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    assert not unexpected and all(k.endswith("num_batches_tracked") for k in missing)
+    opt, sched = build_optimizer(OptimizerConfig(lr=lr), model.parameters(), spe)
+    return TrainState(model, opt, sched, seed=0)
+
+
+def edge_loss_fn():
+    return make_loss_fn("edge_bce_dice", LossConfig(), MODEL_REGISTRY["eelunet"])
+
+
+def port_index(variables):
+    """Where each element of each port tensor lies in the JAX ``variables``
+    leaves, concatenated in tree order. ``from_flax_variables`` moves
+    elements and computes none, so applied to a tree of element numbers it
+    gives a map that takes any tree of that structure over exactly, in any
+    dtype (it converts through float32, exact for element numbers < 2**24)."""
+    leaves, treedef = jax.tree_util.tree_flatten(variables)
+    start = np.cumsum([0] + [np.size(leaf) for leaf in leaves])
+    assert start[-1] < 2 ** 24
+    numbered = treedef.unflatten([np.arange(a, a + np.size(leaf)).reshape(np.shape(leaf))
+                                  for a, leaf in zip(start, leaves)])
+    return {k: v.long().numpy() for k, v in from_flax_variables(numbered).items()
+            if v.is_floating_point()}
+
+
+def port_tree(variables, index):
+    flat = np.concatenate([np.ravel(np.asarray(leaf))
+                           for leaf in jax.tree_util.tree_leaves(variables)])
+    return {k: torch.from_numpy(flat[ix]) for k, ix in index.items()}
+
+
+def paired_train_steps(variables, batches, float64: bool, cfg=CFG):
+    """Paired train steps from the same narrow weights, one per batch, in
+    float32 or float64: the JAX step on its low-rank high-pass, the port's
+    step on the high-pass Function (plain twins on the CPU). ``batches``
+    holds (JAX model input, port model input, labels) numpy triples, so each
+    package may feed its own input chain's output. Also the first step's
+    gradients: the port's ``.grad``, and JAX's from its Adam first moment
+    after one step, (1 - b1) (g + wd p)."""
+    index = port_index(variables)
+    steps = len(batches)
+    wd = OptimizerConfig().weight_decay
+    with jax.enable_x64(float64):
+        jdt = jnp.float64 if float64 else jnp.float32
+        model = JaxEELUnet(mask_range=MASK_RANGE, widths=NARROW, highpass_impl="lowrank",
+                           **({"dtype": jdt} if float64 else {}))
+        loss_fn = jax_trainer.make_loss_fn("edge_bce_dice", JaxLossConfig(),
+                                           JAX_MODEL_REGISTRY["eelunet"])
+        step = jax_trainer.make_train_step(model, loss_fn, True, donate=False)
+        tx = jax_build_optimizer(JaxOptimizerConfig(lr=LR), steps)
+        cast = lambda t: jax.tree_util.tree_map(lambda a: jnp.asarray(a, jdt), t)  # noqa: E731
+        params = cast(variables["params"])
+        jstate = JaxTrainState(params=params, batch_stats=cast(variables["batch_stats"]),
+                               opt_state=tx.init(params), step=jnp.zeros((), jnp.int32),
+                               rng=jax.random.PRNGKey(0), tx=tx)
+        loss_j = []
+        for i, (x, _, y) in enumerate(batches):
+            jstate, loss, _ = step(jstate, jnp.asarray(x, jdt), jnp.asarray(y, jdt))
+            loss_j.append(float(loss))
+            if i == 0:
+                mu1 = next(s.mu for s in jstate.opt_state if hasattr(s, "mu"))
+                mu1 = port_tree({"params": jax.device_get(mu1),
+                                 "batch_stats": variables["batch_stats"]}, index)
+        want = port_tree({"params": jax.device_get(jstate.params),
+                          "batch_stats": jax.device_get(jstate.batch_stats)}, index)
+
+    tdt = torch.float64 if float64 else torch.float32
+    init = {k: v.to(tdt) for k, v in port_tree(variables, index).items()}
+    pstate = port_state(init, cfg, spe=steps, dtype=tdt)
+    pstep = make_train_step(edge_loss_fn())
+    loss_t = []
+    for i, (_, x, y) in enumerate(batches):
+        loss, ok = pstep(pstate, torch.from_numpy(x).to(tdt), torch.from_numpy(y).to(tdt))
+        assert ok
+        loss_t.append(float(loss))
+        if i == 0:
+            grad_t = {k: p.grad.clone() for k, p in pstate.model.named_parameters()}
+    grad_j = {k: mu1[k].to(tdt) / 0.1 - wd * init[k] for k in grad_t}
+    return {"loss_j": np.array(loss_j), "loss_t": np.array(loss_t), "want": want,
+            "pstate": pstate, "init": init, "grad_j": grad_j, "grad_t": grad_t}
