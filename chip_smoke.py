@@ -8,18 +8,25 @@ Phases (any failure exits non-zero; none is skipped):
 1. A CUDA card is present; print ``nvidia-smi``'s name and power limit.
 2. Build the CUDA kernels from ``eelunet_tpu_torch/csrc`` with nvcc for
    sm_90a, one nvcc per source, all started together; print the build time
-   and ptxas' register report.
+   and ptxas' register report, and, where the toolkit has ``cuobjdump``,
+   the count of tensor-core instructions (HMMA/HGMMA) in the SASS of the
+   two tensor-core kernels (kernel 1, ``contract_kernel_tc``; kernel 4,
+   ``bwd_expand_kernel_tc``), which must be above 0 for every K.
 3. The forward kernels against their plain PyTorch twins at the serving
    path's two high-pass sites, (16,256,256,128) and (16,512,512,64), m = 20,
    in float32 (TF32 off) and bfloat16: contract and expand alone, then the
    whole high-pass, and the whole float32 op against the torch.fft golden
    path. Errors are relative to max|reference|: <= 1e-4 in float32,
    <= 2e-2 in bfloat16. Kernel, twin and library times come from CUDA
-   events; each kernel's bound is computed from its shapes.
+   events; each kernel's bound is computed from its shapes and printed with
+   the kernel's share of it. Kernel 1 is timed in turns with its yardstick,
+   one ``torch.bmm`` that writes T in f32 (kernel, bmm, bmm, kernel).
 3b. The backward kernels against their twins at the training path's sites,
    (8,256,256,128) and (8,512,512,64), m = 20, in float32 and bfloat16:
    kernel 3 (u_re, T) and kernel 4 (dx) alone, then the whole Function's
-   gradient against autograd through the plain low-rank op.
+   gradient against autograd through the plain low-rank op. Kernel 4 is
+   timed in turns with an f32 ``torch.baddbmm`` (TF32 on for that call in
+   bfloat16, as the kernel's arithmetic) and, in bfloat16, with a bf16 one.
 3c. Kernel 5 (the Canny stencil) against its twin in both modes at the
    Canny path's site, (8,512,512,1) float32 grayscale of seeded blob images:
    the share of pixels that disagree and, in mode ``improve``, the max |d|
@@ -37,14 +44,16 @@ Phases (any failure exits non-zero; none is skipped):
 5. In-process, the same weights at 512^2 batch 16: both forward kernels
    launch exactly twice per forward; the kernel path agrees with the plain
    path (float32 at batch 2, bfloat16 at batch 16, bounds printed); the
-   forward time per batch is printed.
+   forward time per batch is printed beside its reading with kernels 1
+   and 4 on CUDA cores.
 6. In-process training at full width, 512^2, batch 8, bf16 autocast on f32
    weights, seeded synthetic batches, 6 steps of the port's train step: each
    of the four kernels launches exactly twice per step and the loss stays
    finite. One step on the kernels and one on ``highpass_impl="lowrank"``,
    from the same state, agree on loss and gradient norm (float32 at batch 2
    and bfloat16 at batch 8, bounds printed). The step time of both paths
-   (CUDA events, warm, in turns), img/s and the peak memory are printed.
+   (CUDA events, warm, in turns), img/s and the peak memory are printed,
+   the step time beside its readings with kernels 1 and 4 on CUDA cores.
 7. Train through the entry point a user runs: ``python -m
    eelunet_tpu_torch.cli.train --model_type eelunet --image_size 512
    --batch_size 8 --set model.dtype=bfloat16 --epochs 2`` on a synthetic
@@ -163,10 +172,18 @@ CONV_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # add, atan2, degree mul and wrap add 5.
 CANNY_FLOPS = {"zero": 36, "improve": 38}
 # Published H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, and
-# FLOP/s for the kernels' input type (bf16 dense tensor cores; f32 on CUDA
-# cores, since f32 arithmetic has no faster unit).
+# FLOP/s by the arithmetic a kernel does: bf16 and TF32 on the tensor
+# cores, f32 on CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
+# Readings with kernels 1 and 4 on CUDA cores (their first versions), on an
+# NVIDIA H100 80GB HBM3 at 700.00 W, printed beside this run's: the served
+# forward (512^2 b16 bf16) and the train step (512^2 b8 bf16, two calls).
+CUDA_CORE_FORWARD_MS = 65.43
+CUDA_CORE_STEP_MS = (117.98, 122.57)
+# The two kernels on tensor cores and their functions in the SASS.
+TC_KERNELS = {"highpass_contract": ("highpass", "contract_kernel_tc"),
+              "highpass_bwd_expand": ("highpass_bwd", "bwd_expand_kernel_tc")}
 
 
 class SmokeFailure(RuntimeError):
@@ -197,11 +214,21 @@ def rel_err(got, want) -> tuple:
     return d, d / max(want.float().abs().max().item(), 1e-30)
 
 
+def arithmetic(name: str, dname: str) -> str:
+    """The arithmetic of a high-pass kernel in a model of type ``dname``:
+    float32 models run f32 throughout. In a bf16 model, kernel 1 multiplies
+    bf16 x by a bf16 V_H; kernels 2-4 multiply f32 factors and spectra, which
+    the tensor cores take at best in TF32 (kernel 4 does)."""
+    if dname == "float32":
+        return "float32"
+    return "bfloat16" if name == "highpass_contract" else "tf32"
+
+
 def kernel_bound(name: str, shape, dname: str, k: int) -> tuple:
     """(bound_ms, bound_by) of one launch of kernel ``name`` on an NHWC
     ``shape`` in ``dname``: the larger of its bytes (each input read once,
     each output written once) over the HBM rate and its FLOPs over the peak
-    for its input type."""
+    for its arithmetic."""
     b, h, w, c = shape
     n = b * h * w * c                 # elements of x
     sx = 2 if dname == "bfloat16" else 4
@@ -214,8 +241,15 @@ def kernel_bound(name: str, shape, dname: str, k: int) -> tuple:
         "highpass_bwd_expand": (2 * n * sx + factors + skinny, 2 * k),  # R, u -> dx
     }[name]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * fma * n / PEAK_FLOPS[dname] * 1e3
+    t_ops = 2 * fma * n / PEAK_FLOPS[arithmetic(name, dname)] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def in_turns(kernel, library, iters: int = 10) -> tuple:
+    """Kernel and library times in turns (kernel, library, library,
+    kernel): (kernel ms, library ms, the four turns)."""
+    turns = [cuda_ms(f, iters=iters) for f in (kernel, library, library, kernel)]
+    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
 
 
 # ------------------------------------------------------------------ phases
@@ -245,6 +279,26 @@ def phase_build():
                 print(f"    {line.strip()}")
         _build.load(name)
     print(f"[2] build wall time {time.monotonic() - t0:.1f} s (one nvcc per source, in parallel)")
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        print("[2] no cuobjdump in the toolkit: tensor-core instructions not counted")
+    for name, (lib, fn) in TC_KERNELS.items():
+        if not os.path.exists(cuobjdump):
+            break
+        sass = subprocess.run([cuobjdump, "-sass", str(built[lib][0])], capture_output=True,
+                              text=True, timeout=120).stdout
+        counts, current = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                current = line.split("Function :", 1)[1].strip()
+            elif current and fn in current and ("HMMA" in line or "HGMMA" in line):
+                counts[current] = counts.get(current, 0) + 1
+        per_k = {f.split(fn + "ILi", 1)[1].split("E", 1)[0]: c
+                 for f, c in counts.items() if fn + "ILi" in f}
+        print(f"[2] {name} ({fn}): tensor-core instructions (HMMA/HGMMA) in the SASS per K "
+              f"{dict(sorted(per_k.items(), key=lambda kv: int(kv[0])))}")
+        check(len(per_k) == 4 and min(per_k.values()) > 0,
+              f"{fn}: no tensor-core instructions in the SASS of every K: {per_k}")
     sys.stdout.flush()
 
 
@@ -287,13 +341,18 @@ def phase_kernels():
                 e_f = rel_err(whole_k, high_pass_fft_reference(x, MASK_RANGE)) \
                     if dtype == torch.float32 else None
                 del whole_p, tk, tp, ok_, op_
-                # Library yardstick of kernel 1: one matmul of the stacked
-                # V_H (2K, H) against x, in x's dtype, operands made first.
-                v_stack = torch.cat([vr_t.t(), vi_t.t()]).contiguous()
-                rows["highpass_contract"] = (e_c, cuda_ms(
-                    lambda: fft_cuda.highpass_contract(x3, vr_t, vi_t)), cuda_ms(
-                    lambda: fft_cuda.highpass_contract_plain(x3, vr_t, vi_t)), cuda_ms(
-                    lambda: torch.matmul(v_stack, x3)))
+                # Library yardstick of kernel 1: one bmm of the stacked V_H
+                # (2K, H) against x that writes T in f32, as the kernel does,
+                # operands made first; in turns with the kernel.
+                v_stack = torch.cat([vr_t.t(), vi_t.t()]).contiguous().expand(b, -1, h)
+                out_dt = {"out_dtype": torch.float32} if dtype == torch.bfloat16 else {}
+                ms_c, lib_c, turns = in_turns(
+                    lambda: fft_cuda.highpass_contract(x3, vr_t, vi_t),
+                    lambda: torch.bmm(v_stack, x3, **out_dt))
+                print(f"[3] highpass_contract {str(shape):22s} {dname:8s} turns (kernel, bmm, "
+                      f"bmm, kernel) {[round(t, 4) for t in turns]} ms")
+                rows["highpass_contract"] = (e_c, ms_c, cuda_ms(
+                    lambda: fft_cuda.highpass_contract_plain(x3, vr_t, vi_t)), lib_c)
                 rows["highpass_expand"] = (e_e, cuda_ms(
                     lambda: fft_cuda.highpass_expand(x3, uhr, uhi, s_r, s_i)), cuda_ms(
                     lambda: fft_cuda.highpass_expand_plain(x3, uhr, uhi, s_r, s_i)), None)
@@ -323,7 +382,8 @@ def _print_rows(phase, rows, shape, dname, tol, k, metric="rel"):
         extra = ""
         if name in HIGHPASS:
             bound_ms, bound_by = kernel_bound(name, shape, dname, k)
-            extra = f"  bound {bound_ms:.3f} ms ({bound_by})"
+            extra = (f"  bound {bound_ms:.3f} ms ({bound_by}, "
+                     f"{arithmetic(name, dname)}; {100 * bound_ms / ms:.1f}% of it)")
         if lib_ms is not None:
             extra += f"  library {lib_ms:.3f} ms"
         print(f"[{phase}] {name:21s} {str(shape):22s} {dname:8s} max|d| {abs_e:.3e} "
@@ -373,19 +433,42 @@ def phase_bwd_kernels():
                 print(f"[3b] highpass_bwd_contract T {str(shape):22s} {dname:8s} "
                       f"max|d| {e_t[0]:.3e} rel {e_t[1]:.3e} (bound {TOL['float32']:g})")
                 check(e_t[1] <= TOL["float32"], f"bwd contract T {shape} {dname}: {e_t[1]:.3e}")
-                # Library yardstick of kernel 4: one baddbmm, u - [V_r^T, -V_i^T] [R_r; R_i],
-                # in u's dtype, operands made first.
-                v_cat = torch.cat([vr_t, -vi_t], dim=1).to(dtype).expand(b, h, 2 * k)
-                r_cat = torch.cat([r_r, r_i], dim=1).to(dtype)
+                # Library yardsticks of kernel 4, one baddbmm each, u - [V_r^T,
+                # -V_i^T] [R_r; R_i], operands made first: in f32 with TF32 on
+                # for that call only in a bf16 model (the kernel's arithmetic;
+                # TF32 off in a float32 one), and, in a bf16 model, in bf16.
+                v_cat = torch.cat([vr_t, -vi_t], dim=1).expand(b, h, 2 * k)
+                r_cat = torch.cat([r_r, r_i], dim=1)
+                u32 = up.float()
+
+                def lib_f32():
+                    torch.backends.cuda.matmul.allow_tf32 = dtype == torch.bfloat16
+                    try:
+                        return torch.baddbmm(u32, v_cat, r_cat, alpha=-1)
+                    finally:
+                        torch.backends.cuda.matmul.allow_tf32 = False
+
+                ms_d, lib_d, turns = in_turns(
+                    lambda: fft_cuda.highpass_bwd_expand(up, vr_t, vi_t, r_r, r_i), lib_f32)
+                lib_bf16 = ""
+                if dtype == torch.bfloat16:
+                    v16, r16 = v_cat.to(dtype), r_cat.to(dtype)
+                    _, lib16, turns16 = in_turns(
+                        lambda: fft_cuda.highpass_bwd_expand(up, vr_t, vi_t, r_r, r_i),
+                        lambda: torch.baddbmm(up, v16, r16, alpha=-1))
+                    lib_bf16 = (f"; bf16 baddbmm {lib16:.3f} ms, turns "
+                                f"{[round(t, 4) for t in turns16]}")
+                    del v16, r16
+                print(f"[3b] highpass_bwd_expand {str(shape):22s} {dname:8s} turns (kernel, "
+                      f"f32 baddbmm{' in TF32' if lib_bf16 else ''}, the same, kernel) "
+                      f"{[round(t, 4) for t in turns]} ms{lib_bf16}")
                 rows["highpass_bwd_contract"] = (e_u, cuda_ms(
                     lambda: fft_cuda.highpass_bwd_contract(x3, g3, uhr, uhi, s_r, s_i)), cuda_ms(
                     lambda: fft_cuda.highpass_bwd_contract_plain(x3, g3, uhr, uhi, s_r, s_i)),
                     None)
-                rows["highpass_bwd_expand"] = (e_d, cuda_ms(
-                    lambda: fft_cuda.highpass_bwd_expand(up, vr_t, vi_t, r_r, r_i)), cuda_ms(
-                    lambda: fft_cuda.highpass_bwd_expand_plain(up, vr_t, vi_t, r_r, r_i)),
-                    cuda_ms(lambda: torch.baddbmm(up, v_cat, r_cat, alpha=-1)))
-                del v_cat, r_cat
+                rows["highpass_bwd_expand"] = (e_d, ms_d, cuda_ms(
+                    lambda: fft_cuda.highpass_bwd_expand_plain(up, vr_t, vi_t, r_r, r_i)), lib_d)
+                del v_cat, r_cat, u32
             # The whole Function (four launches) against autograd of the plain op.
             xg = x.detach().requires_grad_(True)
             (got,) = torch.autograd.grad(fft_cuda.high_pass_fft_cuda(xg, MASK_RANGE), xg, g)
@@ -721,7 +804,9 @@ def phase_model(sd, cfg):
                 ms_k = cuda_ms(lambda: kern(xb), iters=5)
                 ms_p = cuda_ms(lambda: plain(xb), iters=5)
                 print(f"[5] forward 512^2 b16 bf16 (BN folded): {ms_k:.2f} ms/batch with the "
-                      f"kernels ({16e3 / ms_k:.1f} img/s), {ms_p:.2f} ms/batch with the plain "
+                      f"kernels ({16e3 / ms_k:.1f} img/s; {CUDA_CORE_FORWARD_MS} ms with kernels 1 "
+                      f"and 4 on CUDA cores, on an NVIDIA H100 80GB HBM3 at 700.00 W), "
+                      f"{ms_p:.2f} ms/batch with the plain "
                       f"high-pass; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
                       "GiB", flush=True)
                 out = {"forward_ms": ms_k, "plain_forward_ms": ms_p}
@@ -801,7 +886,9 @@ def phase_train(workdir: str):
     state.model.highpass_impl = "auto"
     ms_k, ms_p = (float(np.mean(times[k])) for k in ("auto", "lowrank"))
     print(f"[6] train step 512^2 b8 bf16: {ms_k:.2f} ms/step with the kernels "
-          f"({8e3 / ms_k:.1f} img/s; turns {[round(t, 2) for t in times['auto']]}), "
+          f"({8e3 / ms_k:.1f} img/s; turns {[round(t, 2) for t in times['auto']]}; "
+          f"{CUDA_CORE_STEP_MS[0]}-{CUDA_CORE_STEP_MS[1]} ms with kernels 1 and 4 on CUDA "
+          f"cores, on an NVIDIA H100 80GB HBM3 at 700.00 W), "
           f"{ms_p:.2f} ms/step with highpass_impl=lowrank "
           f"(turns {[round(t, 2) for t in times['lowrank']]})", flush=True)
 

@@ -1,7 +1,8 @@
 // FFT high-pass kernel pair for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the Pallas TPU kernels of eelunet_tpu/ops/fft_pallas.py:
-//   contract_kernel  <- _contract_kernel / _contract_kernel_4d (:106 / :129)
+//   contract_kernel_tc (bf16) and contract_kernel (f32)
+//                    <- _contract_kernel / _contract_kernel_4d (:106 / :129)
 //   expand_kernel    <- _expand_kernel   / _expand_kernel_4d   (:167 / :147)
 // both launched there by _fwd_core (:205). The math is that of
 // eelunet_tpu_torch/ops/fft.py: with x viewed as (B, H, W*C),
@@ -9,30 +10,52 @@
 //   expand:    out  = sqrt(max((x - Re U_H S)^2 + (Im U_H S)^2, 1e-24))
 // where S is T after the W-axis middle (four skinny einsums, in PyTorch).
 // K is 2m padded to a multiple of 16 with zero rows (exactly the unpadded
-// operator); the wrapper passes K in {16, 32, 48, 64}.
+// operator); the wrapper passes K in {16, 32, 48, 64}. Any H and any W*C
+// are taken: ragged tiles are masked inside the kernels, so there is no
+// shape fallback.
 //
-// What bounds it on an H100: at the serving path's sites, (16,256,256,128)
-// and (16,512,512,64) with m = 20 (K = 48), the contract does 2K FMAs per
-// element of x and the expand 4K, about 2.6e10 and 5.2e10 FMAs at the 512
-// site, against one read of x (0.5 GB in bf16) and one write. On CUDA cores
-// that is compute-bound. This first version keeps the whole arithmetic on
-// CUDA cores in f32:
-//   - one thread owns one column j of the (H, W*C) image, so the reads of x
-//     are coalesced along W*C, and each block walks the whole of H: no
-//     carried state between blocks and no atomics;
-//   - the K-row factor matrix is staged in shared memory a chunk of rows at a
-//     time and read as float4 broadcasts (every thread of a warp reads the
-//     same address), four FMAs per shared-memory load;
-//   - the contract keeps its 2K accumulators in registers, the expand keeps
-//     its column of S (2K values) in registers; nothing full-resolution but
-//     x and out touches device memory.
-// Tensor cores (mma.sync / wgmma) are the next step and are not used here.
+// The contract in bf16 (the model's type), contract_kernel_tc. What bounds
+// it on an H100: at (16,512,512,64) with K = 48 it reads x once (0.54 GB)
+// and writes T (0.20 GB), 0.220 ms at 3.35 TB/s, against 2.6e10 FMAs: 0.052
+// ms on the bf16 tensor cores, but 0.77 ms on CUDA cores in f32, so only the
+// tensor cores let it be bound by bytes. The design:
+//   - T = [V_r; V_i] x is one product per image with M = 2K rows; a block
+//     owns all 2K rows and a strip of 128 columns and sums the whole of H
+//     itself (no atomics, no second pass, deterministic);
+//   - H goes by in chunks of 32 rows through a 4-slot ring of shared memory
+//     filled by 16-byte cp.async: the x chunk and the matching rows of the
+//     stacked factor [V_r^T | V_i^T], read through its two (H, K) halves;
+//     staged rows are padded by 16 bytes so ldmatrix hits 8 bank groups;
+//   - mma.sync.m16n8k16 (bf16 in, f32 sums), both operands by
+//     ldmatrix.trans; warp w holds T_r (w < 4) or T_i rows and 32 columns;
+//   - the epilogue writes each quad's 8 consecutive floats of a row as
+//     float2s: whole 32-byte sectors;
+//   - rows of x that are not 16-byte aligned (W*C not a multiple of 8, or a
+//     misaligned base) and ragged pieces are copied element by element.
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 3):
+// 0.324 ms at (16,512,512,64), 68% of its bound, and 0.220 ms at
+// (16,256,256,128), against 2.57 and 1.31 ms for the CUDA-core version it
+// replaces and 0.245 and 0.165 ms for one torch.bmm writing f32.
+// In float32 the contract stays on CUDA cores (contract_kernel): exact f32
+// products, which TF32 would not give.
+//
+// The expand (and the f32 contract) keep the first version's design on
+// CUDA cores in f32: one thread owns one column j of the (H, W*C) image and
+// walks all of H; the K-row factor matrix is staged in shared memory a
+// chunk of rows at a time and read as float4 broadcasts, four FMAs per
+// load; the expand keeps its column of S (2K values) in registers. The
+// expand does 4K FMAs per element of x, so it is bound by operations there
+// (3.36 ms against 0.381 ms of bytes at the 512 site).
 //
 // Interface: plain C functions, loaded with ctypes. Each launches on the
 // stream it is given and returns cudaGetLastError() (0 on success).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -59,17 +82,17 @@ __device__ __forceinline__ void stage_rows(float* s, const F* __restrict__ a,
   }
 }
 
-// grid (ceil(WC / kThreads), B); x (B, H, WC); vr_t, vi_t (H, K) in x's type;
-// tr, ti (B, K, WC) f32.
-template <typename T, int K>
+// grid (ceil(WC / kThreads), B); x (B, H, WC), vr_t, vi_t (H, K) and
+// tr, ti (B, K, WC), all f32.
+template <int K>
 __global__ void __launch_bounds__(kThreads)
-contract_kernel(const T* __restrict__ x, const T* __restrict__ vr_t,
-                const T* __restrict__ vi_t, float* __restrict__ tr,
+contract_kernel(const float* __restrict__ x, const float* __restrict__ vr_t,
+                const float* __restrict__ vi_t, float* __restrict__ tr,
                 float* __restrict__ ti, int H, int WC) {
   __shared__ float4 sv[kRows][K / 2];  // per row: K real, then K imaginary
   const int j = blockIdx.x * kThreads + threadIdx.x;
   const int b = blockIdx.y;
-  const T* xb = x + static_cast<size_t>(b) * H * WC;
+  const float* xb = x + static_cast<size_t>(b) * H * WC;
 
   float ar[K], ai[K];
 #pragma unroll
@@ -80,11 +103,11 @@ contract_kernel(const T* __restrict__ x, const T* __restrict__ vr_t,
   for (int h0 = 0; h0 < H; h0 += kRows) {
     const int rows = min(kRows, H - h0);
     __syncthreads();  // the previous chunk has been read by every thread
-    stage_rows<T, K>(reinterpret_cast<float*>(sv), vr_t, vi_t, h0, rows);
+    stage_rows<float, K>(reinterpret_cast<float*>(sv), vr_t, vi_t, h0, rows);
     __syncthreads();
     if (j < WC) {
       for (int r = 0; r < rows; ++r) {
-        const float xv = to_f32(xb[static_cast<size_t>(h0 + r) * WC + j]);
+        const float xv = xb[static_cast<size_t>(h0 + r) * WC + j];
 #pragma unroll
         for (int q = 0; q < K / 4; ++q) {
           const float4 vr = sv[r][q];
@@ -171,20 +194,228 @@ expand_kernel(const T* __restrict__ x, const float* __restrict__ ur,
   }
 }
 
-template <typename T>
-cudaError_t launch_contract(int K, const void* x, const void* vr_t, const void* vi_t,
-                            void* tr, void* ti, int B, int H, int WC, cudaStream_t s) {
+// ------------------------------------------------ kernel 1 on tensor cores (bf16)
+//
+// T = [V_r; V_i] x per image as one product: M = 2K rows of the stacked
+// V_H, N = a strip of kTcCols columns of x, and the sum runs over H in
+// chunks of kTcRows, through a kTcStages-deep cp.async ring. Warp w owns
+// the real (w < 4) or the imaginary half (K rows) of T and 32 of the
+// strip's columns: K/16 x 4 tiles of mma.m16n8k16 (bf16 in, f32 out).
+constexpr int kTcThreads = 256;       // 8 warps
+constexpr int kTcCols = 128;          // columns of x per block
+constexpr int kTcRows = 32;           // rows of H per ring slot
+constexpr int kTcStages = 4;
+constexpr int kXPitch = kTcCols + 8;  // bf16 per staged x row: +16 bytes, so the
+                                      // 8 rows one ldmatrix reads hit 8 bank groups
+template <int K>
+constexpr int kVPitch = 2 * K + 8;  // a staged [V_r^T | V_i^T] row, padded alike
+template <int K>
+constexpr int kSlot = kTcRows * (kXPitch + kVPitch<K>);  // bf16 per ring slot
+template <int K>
+constexpr int kTcSmemBytes = kTcStages * kSlot<K> * 2;
+
+// Four 8x8 b16 matrices, transposed: lane l gives the row address of
+// matrix l / 8, row l % 8.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fill one ring slot: rows [h0, h0 + kTcRows) of the block's x strip
+// [j0, j0 + kTcCols) and of the stacked (H, 2K) factor [V_r^T | V_i^T],
+// read through its two (H, K) halves. Rows past H and columns past WC are
+// zeros. A 16-byte piece goes by cp.async when x's rows are 16-byte aligned
+// (vec) and the piece lies inside the row; a ragged or misaligned piece is
+// copied element by element.
+template <int K>
+__device__ __forceinline__ void load_slot(__nv_bfloat16* xs, __nv_bfloat16* vs,
+                                          const __nv_bfloat16* __restrict__ xb,
+                                          const __nv_bfloat16* __restrict__ vr_t,
+                                          const __nv_bfloat16* __restrict__ vi_t, int h0,
+                                          int j0, int H, int WC, bool vec) {
+  constexpr int kXPieces = kTcRows * kTcCols / 8;
+  for (int i = threadIdx.x; i < kXPieces; i += kTcThreads) {
+    const int r = i / (kTcCols / 8);
+    const int c = (i % (kTcCols / 8)) * 8;
+    const int h = h0 + r;
+    const int j = j0 + c;
+    __nv_bfloat16* dst = xs + r * kXPitch + c;
+    const __nv_bfloat16* src = xb + static_cast<size_t>(h) * WC + j;
+    if (h >= H || j >= WC) {
+      cp_async16(dst, xb, 0);
+    } else if (vec && j + 8 <= WC) {
+      cp_async16(dst, src, 16);
+    } else {
+      for (int e = 0; e < 8; ++e) dst[e] = j + e < WC ? src[e] : __float2bfloat16(0.f);
+    }
+  }
+  constexpr int kVPieces = kTcRows * 2 * K / 8;
+  for (int i = threadIdx.x; i < kVPieces; i += kTcThreads) {
+    const int r = i / (2 * K / 8);
+    const int c = (i % (2 * K / 8)) * 8;
+    const int h = h0 + r;
+    const __nv_bfloat16* src = c < K ? vr_t + static_cast<size_t>(h) * K + c
+                                     : vi_t + static_cast<size_t>(h) * K + (c - K);
+    cp_async16(vs + r * kVPitch<K> + c, h < H ? src : vr_t, h < H ? 16 : 0);
+  }
+}
+
+// grid (ceil(WC / kTcCols), B), kTcThreads threads, kTcSmemBytes<K> of
+// dynamic shared memory; x (B, H, WC) bf16; vr_t, vi_t (H, K) bf16;
+// tr, ti (B, K, WC) f32.
+template <int K>
+__global__ void __launch_bounds__(kTcThreads, 2)
+contract_kernel_tc(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ vr_t,
+                   const __nv_bfloat16* __restrict__ vi_t, float* __restrict__ tr,
+                   float* __restrict__ ti, int H, int WC, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  constexpr int kMT = K / 16;  // m16 tiles of a warp's K rows
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int half = warp >> 2;          // 0: the rows of T_r, 1: those of T_i
+  const int wcol = (warp & 3) * 32;    // the warp's 32 columns of the strip
+  const int j0 = blockIdx.x * kTcCols;
+  const int b = blockIdx.y;
+  const __nv_bfloat16* xb = x + static_cast<size_t>(b) * H * WC;
+  const int n_chunks = (H + kTcRows - 1) / kTcRows;
+
+  float acc[kMT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < n_chunks)
+      load_slot<K>(ring + s * kSlot<K>, ring + s * kSlot<K> + kTcRows * kXPitch, xb,
+                   vr_t, vi_t, s * kTcRows, j0, H, WC, vec);
+    cp_async_commit();
+  }
+  const int q = lane >> 3;  // the ldmatrix matrix this lane addresses
+  const int r8 = lane & 7;  // and its row there
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<kTcStages - 2>();  // chunk c has landed (this thread's pieces)
+    __syncthreads();                 // everyone's pieces; slot c - 1 is free
+    const int next = c + kTcStages - 1;
+    if (next < n_chunks) {
+      __nv_bfloat16* slot = ring + (next % kTcStages) * kSlot<K>;
+      load_slot<K>(slot, slot + kTcRows * kXPitch, xb, vr_t, vi_t, next * kTcRows, j0, H, WC,
+                   vec);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* xs = ring + (c % kTcStages) * kSlot<K>;
+    const __nv_bfloat16* vs = xs + kTcRows * kXPitch;
+#pragma unroll
+    for (int k0 = 0; k0 < kTcRows; k0 += 16) {
+      // B (x, k16 x n8) fragments of the warp's four n8 tiles, two per
+      // ldmatrix: matrices (k0-7, n), (k8-15, n), (k0-7, n+8), (k8-15, n+8).
+      unsigned bf[4][2];
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        unsigned r[4];
+        ldmatrix_x4_trans(
+            r, xs + (k0 + r8 + (q & 1) * 8) * kXPitch + wcol + np * 16 + (q >> 1) * 8);
+        bf[2 * np][0] = r[0];
+        bf[2 * np][1] = r[1];
+        bf[2 * np + 1][0] = r[2];
+        bf[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        // A (V, m16 x k16) fragment from the staged V^T: matrices
+        // (k0-7, m), (k0-7, m+8), (k8-15, m), (k8-15, m+8).
+        unsigned af[4];
+        ldmatrix_x4_trans(af, vs + (k0 + r8 + (q >> 1) * 8) * kVPitch<K> + half * K +
+                                  mt * 16 + (q & 1) * 8);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af, bf[nt][0], bf[nt][1]);
+      }
+    }
+  }
+  // Each quad of lanes holds 8 consecutive columns of a row: float2 stores
+  // fill whole 32-byte sectors.
+  float* out = (half ? ti : tr) + static_cast<size_t>(b) * K * WC;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const bool even = (WC & 1) == 0;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int j = j0 + wcol + nt * 8 + t4 * 2;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float* p = out + static_cast<size_t>(mt * 16 + g + hh * 8) * WC + j;
+        const float v0 = acc[mt][nt][2 * hh];
+        const float v1 = acc[mt][nt][2 * hh + 1];
+        if (even && j + 1 < WC) {
+          *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+        } else {
+          if (j < WC) p[0] = v0;
+          if (j + 1 < WC) p[1] = v1;
+        }
+      }
+    }
+}
+
+template <int K>
+cudaError_t contract_tc(const void* x, const void* vr_t, const void* vi_t, void* tr, void* ti,
+                        int B, int H, int WC, cudaStream_t s) {
+  constexpr int smem = kTcSmemBytes<K>;
+  static bool configured = false;  // the attribute is set once per instantiation
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        contract_kernel_tc<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const bool vec = WC % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const dim3 grid((WC + kTcCols - 1) / kTcCols, B);
+  contract_kernel_tc<K><<<grid, kTcThreads, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(vr_t),
+      static_cast<const __nv_bfloat16*>(vi_t), static_cast<float*>(tr),
+      static_cast<float*>(ti), H, WC, vec);
+  return cudaGetLastError();
+}
+
+// bf16: the tensor-core kernel; float32: the CUDA-core kernel, exact f32.
+cudaError_t launch_contract_bf16(int K, const void* x, const void* vr_t, const void* vi_t,
+                                 void* tr, void* ti, int B, int H, int WC, cudaStream_t s) {
+  switch (K) {
+    case 16: return contract_tc<16>(x, vr_t, vi_t, tr, ti, B, H, WC, s);
+    case 32: return contract_tc<32>(x, vr_t, vi_t, tr, ti, B, H, WC, s);
+    case 48: return contract_tc<48>(x, vr_t, vi_t, tr, ti, B, H, WC, s);
+    case 64: return contract_tc<64>(x, vr_t, vi_t, tr, ti, B, H, WC, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_contract_f32(int K, const void* x, const void* vr_t, const void* vi_t,
+                                void* tr, void* ti, int B, int H, int WC, cudaStream_t s) {
   const dim3 grid((WC + kThreads - 1) / kThreads, B);
-  const T* xp = static_cast<const T*>(x);
-  const T* vr = static_cast<const T*>(vr_t);
-  const T* vi = static_cast<const T*>(vi_t);
+  const float* xp = static_cast<const float*>(x);
+  const float* vr = static_cast<const float*>(vr_t);
+  const float* vi = static_cast<const float*>(vi_t);
   float* a = static_cast<float*>(tr);
   float* c = static_cast<float*>(ti);
   switch (K) {
-    case 16: contract_kernel<T, 16><<<grid, kThreads, 0, s>>>(xp, vr, vi, a, c, H, WC); break;
-    case 32: contract_kernel<T, 32><<<grid, kThreads, 0, s>>>(xp, vr, vi, a, c, H, WC); break;
-    case 48: contract_kernel<T, 48><<<grid, kThreads, 0, s>>>(xp, vr, vi, a, c, H, WC); break;
-    case 64: contract_kernel<T, 64><<<grid, kThreads, 0, s>>>(xp, vr, vi, a, c, H, WC); break;
+    case 16: contract_kernel<16><<<grid, kThreads, 0, s>>>(xp, vr, vi, a, c, H, WC); break;
+    case 32: contract_kernel<32><<<grid, kThreads, 0, s>>>(xp, vr, vi, a, c, H, WC); break;
+    case 48: contract_kernel<48><<<grid, kThreads, 0, s>>>(xp, vr, vi, a, c, H, WC); break;
+    case 64: contract_kernel<64><<<grid, kThreads, 0, s>>>(xp, vr, vi, a, c, H, WC); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -218,8 +449,8 @@ extern "C" int eelunet_highpass_contract(int dtype, int K, const void* x, const 
                                          const void* vi_t, void* tr, void* ti, int B,
                                          int H, int WC, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_contract<float>(K, x, vr_t, vi_t, tr, ti, B, H, WC, s);
-  if (dtype == 1) return launch_contract<__nv_bfloat16>(K, x, vr_t, vi_t, tr, ti, B, H, WC, s);
+  if (dtype == 0) return launch_contract_f32(K, x, vr_t, vi_t, tr, ti, B, H, WC, s);
+  if (dtype == 1) return launch_contract_bf16(K, x, vr_t, vi_t, tr, ti, B, H, WC, s);
   return cudaErrorInvalidValue;
 }
 

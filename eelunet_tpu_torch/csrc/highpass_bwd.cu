@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernels of eelunet_tpu/ops/fft_pallas.py:
 //   bwd_contract_kernel <- _bwd_contract_kernel (:390)
-//   bwd_expand_kernel   <- _bwd_expand_kernel   (:427)
+//   bwd_expand_kernel_tc (bf16) and bwd_expand_kernel (f32)
+//                       <- _bwd_expand_kernel   (:427)
 // both launched there by _bwd_core (:453). With x and the cotangent g viewed
 // as (B, H, W*C) and S the saved skinny spectrum of the forward:
 //   contract:  z = x - U_H S (complex, rebuilt per column from S);
@@ -12,45 +13,66 @@
 //   expand:    dx = f32(Re u) - Re(V_H^T R), rounded to the model type, where
 //              R is T after the W-axis middle (four skinny einsums, in PyTorch).
 // x, g, u and dx share one type, f32 or bf16: autograd hands the backward a
-// cotangent in its output's type, which is x's.
-// All arithmetic is f32; U_H, V_H^T, S and R are f32 (the semantics of
-// _bwd_core, not of _highpass_bwd_impl, which casts U_H to the model type).
+// cotangent in its output's type, which is x's. U_H, V_H^T, S and R are f32
+// (the semantics of _bwd_core, not of _highpass_bwd_impl, which casts U_H to
+// the model type). Any H and any W*C are taken (ragged tiles are masked), so
+// there is no shape fallback.
 //
-// What bounds it on an H100: at the training sites, (8,256,256,128) and
-// (8,512,512,64) in bf16 with m = 20 (K = 48), the contract reads x, g and S
-// and writes u and T (1.01 GB at the 512 site, 0.30 ms at 3.35 TB/s) and does
-// 8K FMAs per element (5.2e10); the expand reads R and u and writes dx
-// (0.64 GB, 0.19 ms) with 2K FMAs per element. On CUDA cores in f32 both are
-// compute-bound, as the forward pair is. The design follows the forward
-// kernels (csrc/highpass.cu):
-//   - one thread owns one column j of the (H, W*C) image and each block walks
-//     the whole of H, so T's sum over H stays in one thread: no atomics and no
-//     second pass. Any H and any W*C are taken (the ragged edge is masked), so
-//     there is no shape fallback;
-//   - the factor rows (U_H for the contract, V_H^T for the expand) are staged
-//     in shared memory 32 rows at a time and read as float4 broadcasts.
-// The contract needs the column's S (2K values) to rebuild z and the 2K
-// accumulators of T at once: 192 values at K = 48, against 255 registers a
-// thread. T stays in registers; the block's S columns go to dynamic shared
-// memory as float4s laid out [k/4][thread], so a warp's reads are 512
-// consecutive bytes, conflict-free (48 KB at K = 48, 64 KB at K = 64, plus
-// the staged rows; above 48 KB after cudaFuncSetAttribute). ptxas' report
-// (chip_smoke.py phase 2) decided the rest: with the rebuild loop fully
-// unrolled the compiler hoisted every load of S and U ahead and hit 255
-// registers with ~470 bytes of spills at K = 48 (9.6 ms at the 512 site on
-// an H100 at 700 W); unrolled by 2 and compiled for 3 blocks per SM it takes
-// 168 registers, spills nothing, and runs in 5.3 ms. What is left bounding
-// it is shared memory: per row a warp reads its S (96 wavefronts) and the U
-// row twice as float4 broadcasts (48 loads of 4 wavefronts), about 290
-// cycles against 96 cycles of FMAs. The other design, T's K split across
-// blockIdx.z with z recomputed per split, would add 4K FMAs per element for
-// each extra split; it was not chosen.
+// The expand in a bf16 model, bwd_expand_kernel_tc. What bounds it on an
+// H100: at (8,512,512,64) with K = 48 it reads R and u and writes dx (0.64
+// GB, 0.190 ms at 3.35 TB/s) with 2K FMAs per element: 0.052 ms in TF32 on
+// the tensor cores, 0.39 ms on CUDA cores in f32. The design:
+//   - dx = u - A R with A = [V_r^T | -V_i^T] (H x 2K) and R = [R_r; R_i],
+//     each read through its two pointers; a block owns a strip of 128
+//     columns and walks H in chunks of 64 rows;
+//   - warp w owns 16 of the strip's columns and holds their R (2K x 16,
+//     rounded to TF32) as mma B fragments in registers for the whole of H;
+//   - each chunk's A rows and u tile come by 16-byte cp.async into a 2-slot
+//     ring, one chunk ahead of the products; each thread rounds the A
+//     pieces it copied to TF32 in place (the imaginary half negated);
+//   - mma.sync.m16n8k8 in TF32 with f32 sums, A fragments from shared
+//     memory (rows padded to 4 mod 32 words: conflict-free). wgmma in TF32
+//     takes only K-major operands and R is N-major, so mma.sync it is;
+//   - dx = u - acc overwrites u in the slot, and the tile leaves in 16-byte
+//     stores: the lanes' own 4-byte stores, 16 bytes of a row each, were
+//     slower on the card.
+// TF32 keeps 10 mantissa bits; both operands are rounded to nearest even
+// (to_tf32), so dx is off by a few 1e-4 of |Re u|: relative L2 2.5e-4 at
+// the 512 site, inside the 1e-2 the card holds bf16 dx to. Where the mask
+// keeps the whole spectrum (2m >= H and W) the exact dx is 0 and this
+// error is all there is (tests/test_torch_port_highpass_tc.py).
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase
+// 3b): 0.341 ms at (8,512,512,64), 56% of its bound, and 0.190 ms at
+// (8,256,256,128), against 1.48 and 0.76 ms for the CUDA-core version it
+// replaces and 0.465 and 0.238 ms for a bf16 torch.baddbmm (0.975 and
+// 0.490 ms for an f32 one in TF32).
+// In float32 the expand stays on CUDA cores (bwd_expand_kernel): 1e-5 of
+// relative L2 is below what TF32 gives.
+//
+// The contract stays on CUDA cores in f32 (its design from the first
+// version): one thread owns one column and walks the whole of H, so T's
+// sum over H stays in one thread; the U_H rows are staged in shared memory
+// 32 rows at a time and read as float4 broadcasts. It needs the column's S
+// (2K values) to rebuild z and the 2K accumulators of T at once: 192
+// values at K = 48, against 255 registers a thread. T stays in registers;
+// the block's S columns go to dynamic shared memory as float4s laid out
+// [k/4][thread], conflict-free (48 KB at K = 48, 64 KB at K = 64, plus the
+// staged rows). Unrolled by 2 and compiled for 3 blocks per SM it takes
+// 168 registers at K = 48 and spills nothing; a full unroll hoisted every
+// load of S and U and spilled. What bounds it is shared memory: per row a
+// warp reads its S (96 wavefronts) and the U row twice as float4
+// broadcasts, about 290 cycles against 96 cycles of FMAs (5.24 ms at the
+// 512 site against a 0.301 ms bound).
 //
 // Interface: plain C functions, loaded with ctypes. Each launches on the
 // stream it is given and returns cudaGetLastError() (0 on success).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -198,13 +220,13 @@ bwd_contract_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// grid (ceil(WC / kThreads), B); vr_t, vi_t (H, K) f32; rr, ri (B, K, WC) f32;
-// u_re, dx (B, H, WC) in T.
-template <typename T, int K>
+// grid (ceil(WC / kThreads), B); vr_t, vi_t (H, K), rr, ri (B, K, WC) and
+// u_re, dx (B, H, WC), all f32.
+template <int K>
 __global__ void __launch_bounds__(kThreads)
 bwd_expand_kernel(const float* __restrict__ vr_t, const float* __restrict__ vi_t,
                   const float* __restrict__ rr, const float* __restrict__ ri,
-                  const T* __restrict__ u_re, T* __restrict__ dx, int H, int WC) {
+                  const float* __restrict__ u_re, float* __restrict__ dx, int H, int WC) {
   __shared__ float4 sv[kRows][K / 2];  // per row: V_r^T then V_i^T
   const int j = blockIdx.x * kThreads + threadIdx.x;
   const int b = blockIdx.y;
@@ -240,7 +262,7 @@ bwd_expand_kernel(const float* __restrict__ vr_t, const float* __restrict__ vi_t
           n1 = fmaf(c.w, ci[4 * q + 3], n1);
         }
         const size_t at = base + static_cast<size_t>(h0 + r) * WC + j;
-        store(dx + at, to_f32(u_re[at]) - ((p0 + p1) - (n0 + n1)));
+        dx[at] = u_re[at] - ((p0 + p1) - (n0 + n1));
       }
     }
   }
@@ -280,22 +302,262 @@ cudaError_t launch_contract(int K, const void* x, const void* g, const void* ur,
   }
 }
 
-template <typename T>
-cudaError_t launch_expand(int K, const void* vr_t, const void* vi_t, const void* rr,
-                          const void* ri, const void* u, void* dx, int B, int H, int WC,
-                          cudaStream_t s) {
+// --------------------------------------- kernel 4 on tensor cores (TF32, bf16 model)
+//
+// dx = u - A R per image with A = [V_r^T | -V_i^T] (H x 2K) and R = [R_r; R_i]
+// (2K x WC), each read through its two pointers. A block owns a strip of
+// kTcCols columns and walks H in chunks of kTcRowsH rows; warp w owns 16 of
+// the strip's columns and holds their R (2K x 16, TF32) as mma B fragments
+// in registers for the whole of H. Each chunk's A rows and u tile come by
+// cp.async into a 2-slot ring, one chunk ahead of the products
+// (mma.m16n8k8, TF32 in, f32 out: 4 x 2 tiles per warp, 2K / 8 steps deep).
+constexpr int kTcThreads = 256;        // 8 warps
+constexpr int kTcCols = 128;           // columns of the image per block
+constexpr int kTcRowsH = 64;           // rows of H per chunk
+constexpr int kUPitch = kTcCols + 8;   // bf16 per staged u row: 68 words, = 4 mod 32
+template <int K>
+constexpr int kAPitch = 2 * K + 4;     // floats per staged A row, = 4 mod 32: an
+                                       // A fragment's 32 loads hit 32 banks
+template <int K>
+constexpr int kASlotBytes = kTcRowsH * kAPitch<K> * 4;
+template <int K>
+constexpr int kExpandSlotBytes = kASlotBytes<K> + kTcRowsH * kUPitch * 2;
+template <int K>
+constexpr int kExpandTcSmemBytes = 2 * kExpandSlotBytes<K>;
+// Blocks per SM it is compiled for: 2 caps it at 128 registers, which hold
+// the R fragments (2K / 2 registers) beside 32 accumulators up to K = 48.
+template <int K>
+constexpr int kExpandTcBlocks = K <= 48 ? 2 : 1;
+
+// f32 -> TF32 (10 mantissa bits), round to nearest even, as f32 bits with
+// the low 13 bits zero; infinities and NaNs pass through.
+__device__ __forceinline__ float to_tf32(float v) {
+  unsigned u = __float_as_uint(v);
+  if ((u & 0x7f800000u) != 0x7f800000u) u = (u + 0xfffu + ((u >> 13) & 1u)) & 0xffffe000u;
+  return __uint_as_float(u);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fill one ring slot with chunk rows [h0, h0 + kTcRowsH): the A rows by
+// cp.async (zeros past H), and the block's u tile, by cp.async where u's
+// rows are 16-byte aligned (vec) and the piece lies inside the row, element
+// by element where not (zeros past H and WC).
+template <int K>
+__device__ __forceinline__ void expand_slot(unsigned char* slot, const float* __restrict__ vr_t,
+                                            const float* __restrict__ vi_t,
+                                            const __nv_bfloat16* __restrict__ ub, int h0, int j0,
+                                            int H, int WC, bool vec) {
+  float* as = reinterpret_cast<float*>(slot);
+  constexpr int kAPieces = kTcRowsH * 2 * K / 4;
+  for (int i = threadIdx.x; i < kAPieces; i += kTcThreads) {
+    const int r = i / (2 * K / 4);
+    const int c = (i % (2 * K / 4)) * 4;
+    const int h = h0 + r;
+    const float* src = c < K ? vr_t + static_cast<size_t>(h) * K + c
+                             : vi_t + static_cast<size_t>(h) * K + (c - K);
+    cp_async16(as + r * kAPitch<K> + c, h < H ? src : vr_t, h < H ? 16 : 0);
+  }
+  __nv_bfloat16* us = reinterpret_cast<__nv_bfloat16*>(slot + kASlotBytes<K>);
+  constexpr int kUPieces = kTcRowsH * kTcCols / 8;
+  for (int i = threadIdx.x; i < kUPieces; i += kTcThreads) {
+    const int r = i / (kTcCols / 8);
+    const int c = (i % (kTcCols / 8)) * 8;
+    const int h = h0 + r;
+    const int j = j0 + c;
+    __nv_bfloat16* dst = us + r * kUPitch + c;
+    const __nv_bfloat16* src = ub + static_cast<size_t>(h) * WC + j;
+    if (h >= H || j >= WC) {
+      cp_async16(dst, ub, 0);
+    } else if (vec && j + 8 <= WC) {
+      cp_async16(dst, src, 16);
+    } else {
+      for (int e = 0; e < 8; ++e) dst[e] = j + e < WC ? src[e] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// The A pieces this thread copied into a slot, rewritten in place as TF32
+// with the imaginary half negated; called once they have landed.
+template <int K>
+__device__ __forceinline__ void round_a(unsigned char* slot) {
+  float* as = reinterpret_cast<float*>(slot);
+  constexpr int kAPieces = kTcRowsH * 2 * K / 4;
+  for (int i = threadIdx.x; i < kAPieces; i += kTcThreads) {
+    const int r = i / (2 * K / 4);
+    const int c = (i % (2 * K / 4)) * 4;
+    float4* p = reinterpret_cast<float4*>(as + r * kAPitch<K> + c);
+    const float4 v = *p;
+    const float sgn = c < K ? 1.f : -1.f;
+    *p = make_float4(to_tf32(sgn * v.x), to_tf32(sgn * v.y), to_tf32(sgn * v.z),
+                     to_tf32(sgn * v.w));
+  }
+}
+
+// grid (ceil(WC / kTcCols), B), kTcThreads threads, kExpandTcSmemBytes<K>
+// of dynamic shared memory; vr_t, vi_t (H, K) f32; rr, ri (B, K, WC) f32;
+// u_re, dx (B, H, WC) bf16. vec: u's and dx's rows are 16-byte aligned.
+template <int K>
+__global__ void __launch_bounds__(kTcThreads, kExpandTcBlocks<K>)
+bwd_expand_kernel_tc(const float* __restrict__ vr_t, const float* __restrict__ vi_t,
+                     const float* __restrict__ rr, const float* __restrict__ ri,
+                     const __nv_bfloat16* __restrict__ u_re, __nv_bfloat16* __restrict__ dx,
+                     int H, int WC, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kSteps = 2 * K / 8;  // k8 steps over the stacked 2K
+  const int lane = threadIdx.x & 31;
+  const int wcol = (threadIdx.x >> 5) * 16;  // the warp's 16 columns of the strip
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int j0 = blockIdx.x * kTcCols;
+  const int b = blockIdx.y;
+  const int n_chunks = (H + kTcRowsH - 1) / kTcRowsH;
+  const size_t base = static_cast<size_t>(b) * H * WC;
+
+  expand_slot<K>(smem_raw, vr_t, vi_t, u_re + base, 0, j0, H, WC, vec);
+  cp_async_commit();
+  // This warp's R as B fragments: b0 = R[8s + t4][n], b1 = R[8s + t4 + 4][n]
+  // for the columns n = g of its two n8 tiles; zeros past WC.
+  unsigned rf[kSteps][2][2];
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kk = 8 * s + t4 + 4 * e;
+        const int j = j0 + wcol + nt * 8 + g;
+        const float* row = kk < K ? rr + (static_cast<size_t>(b) * K + kk) * WC
+                                  : ri + (static_cast<size_t>(b) * K + kk - K) * WC;
+        rf[s][nt][e] = __float_as_uint(to_tf32(j < WC ? __ldg(row + j) : 0.f));
+      }
+
+  for (int c = 0; c < n_chunks; ++c) {
+    unsigned char* slot = smem_raw + (c & 1) * kExpandSlotBytes<K>;
+    if (c + 1 < n_chunks)
+      expand_slot<K>(smem_raw + ((c + 1) & 1) * kExpandSlotBytes<K>, vr_t, vi_t, u_re + base,
+                     (c + 1) * kTcRowsH, j0, H, WC, vec);
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk c has landed (this thread's pieces)
+    round_a<K>(slot);
+    __syncthreads();     // everyone's pieces, rounded
+
+    const float* as = reinterpret_cast<const float*>(slot);
+    float acc[4][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        // A fragment: a0 = A[g][t4], a1 = A[g + 8][t4], a2 = A[g][t4 + 4],
+        // a3 = A[g + 8][t4 + 4] of the m16 x k8 tile.
+        const float* ap = as + (mt * 16 + g) * kAPitch<K> + 8 * s + t4;
+        const unsigned af[4] = {__float_as_uint(ap[0]), __float_as_uint(ap[8 * kAPitch<K>]),
+                                __float_as_uint(ap[4]),
+                                __float_as_uint(ap[8 * kAPitch<K> + 4])};
+        mma_tf32(acc[mt][0], af, rf[s][0][0], rf[s][0][1]);
+        mma_tf32(acc[mt][1], af, rf[s][1][0], rf[s][1][1]);
+      }
+
+    // dx = u - acc at this lane's accumulator positions (rows g and g + 8 of
+    // each m16 tile, columns 2 t4 and 2 t4 + 1 of each n8 tile), written
+    // over u in the slot; then the tile goes out in 16-byte pieces.
+    __nv_bfloat16* us = reinterpret_cast<__nv_bfloat16*>(slot + kASlotBytes<K>);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          unsigned* p = reinterpret_cast<unsigned*>(us + (mt * 16 + g + hh * 8) * kUPitch +
+                                                    wcol + nt * 8 + t4 * 2);
+          const unsigned w = *p;
+          const __nv_bfloat162 d = __floats2bfloat162_rn(
+              __uint_as_float(w << 16) - acc[mt][nt][2 * hh],
+              __uint_as_float(w & 0xffff0000u) - acc[mt][nt][2 * hh + 1]);
+          *p = *reinterpret_cast<const unsigned*>(&d);
+        }
+    __syncthreads();
+    constexpr int kUPieces = kTcRowsH * kTcCols / 8;
+    for (int i = threadIdx.x; i < kUPieces; i += kTcThreads) {
+      const int r = i / (kTcCols / 8);
+      const int cc = (i % (kTcCols / 8)) * 8;
+      const int h = c * kTcRowsH + r;
+      const int j = j0 + cc;
+      if (h >= H || j >= WC) continue;
+      const __nv_bfloat16* src = us + r * kUPitch + cc;
+      __nv_bfloat16* dst = dx + base + static_cast<size_t>(h) * WC + j;
+      if (vec && j + 8 <= WC) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8 && j + e < WC; ++e) dst[e] = src[e];
+      }
+    }
+    __syncthreads();  // every warp is done with this slot before chunk c + 2 refills it
+  }
+}
+
+template <int K>
+cudaError_t expand_tc(const void* vr_t, const void* vi_t, const void* rr, const void* ri,
+                      const void* u, void* dx, int B, int H, int WC, cudaStream_t s) {
+  constexpr int smem = kExpandTcSmemBytes<K>;
+  static bool configured = false;  // the attribute is set once per instantiation
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bwd_expand_kernel_tc<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  const bool vec = WC % 8 == 0 && addr(u) % 16 == 0 && addr(dx) % 16 == 0;
+  const dim3 grid((WC + kTcCols - 1) / kTcCols, B);
+  bwd_expand_kernel_tc<K><<<grid, kTcThreads, smem, s>>>(
+      static_cast<const float*>(vr_t), static_cast<const float*>(vi_t),
+      static_cast<const float*>(rr), static_cast<const float*>(ri),
+      static_cast<const __nv_bfloat16*>(u), static_cast<__nv_bfloat16*>(dx), H, WC, vec);
+  return cudaGetLastError();
+}
+
+// bf16: the TF32 tensor-core kernel; float32: the CUDA-core kernel, exact f32.
+cudaError_t launch_expand_bf16(int K, const void* vr_t, const void* vi_t, const void* rr,
+                               const void* ri, const void* u, void* dx, int B, int H, int WC,
+                               cudaStream_t s) {
+  switch (K) {
+    case 16: return expand_tc<16>(vr_t, vi_t, rr, ri, u, dx, B, H, WC, s);
+    case 32: return expand_tc<32>(vr_t, vi_t, rr, ri, u, dx, B, H, WC, s);
+    case 48: return expand_tc<48>(vr_t, vi_t, rr, ri, u, dx, B, H, WC, s);
+    case 64: return expand_tc<64>(vr_t, vi_t, rr, ri, u, dx, B, H, WC, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_expand_f32(int K, const void* vr_t, const void* vi_t, const void* rr,
+                              const void* ri, const void* u, void* dx, int B, int H, int WC,
+                              cudaStream_t s) {
   const dim3 grid((WC + kThreads - 1) / kThreads, B);
   const float* a = static_cast<const float*>(vr_t);
   const float* c = static_cast<const float*>(vi_t);
   const float* p = static_cast<const float*>(rr);
   const float* q = static_cast<const float*>(ri);
-  const T* up = static_cast<const T*>(u);
-  T* o = static_cast<T*>(dx);
+  const float* up = static_cast<const float*>(u);
+  float* o = static_cast<float*>(dx);
   switch (K) {
-    case 16: bwd_expand_kernel<T, 16><<<grid, kThreads, 0, s>>>(a, c, p, q, up, o, H, WC); break;
-    case 32: bwd_expand_kernel<T, 32><<<grid, kThreads, 0, s>>>(a, c, p, q, up, o, H, WC); break;
-    case 48: bwd_expand_kernel<T, 48><<<grid, kThreads, 0, s>>>(a, c, p, q, up, o, H, WC); break;
-    case 64: bwd_expand_kernel<T, 64><<<grid, kThreads, 0, s>>>(a, c, p, q, up, o, H, WC); break;
+    case 16: bwd_expand_kernel<16><<<grid, kThreads, 0, s>>>(a, c, p, q, up, o, H, WC); break;
+    case 32: bwd_expand_kernel<32><<<grid, kThreads, 0, s>>>(a, c, p, q, up, o, H, WC); break;
+    case 48: bwd_expand_kernel<48><<<grid, kThreads, 0, s>>>(a, c, p, q, up, o, H, WC); break;
+    case 64: bwd_expand_kernel<64><<<grid, kThreads, 0, s>>>(a, c, p, q, up, o, H, WC); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -321,8 +583,7 @@ extern "C" int eelunet_highpass_bwd_expand(int dtype, int K, const void* vr_t,
                                            const void* u_re, void* dx, int B, int H, int WC,
                                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_expand<float>(K, vr_t, vi_t, rr, ri, u_re, dx, B, H, WC, s);
-  if (dtype == 1)
-    return launch_expand<__nv_bfloat16>(K, vr_t, vi_t, rr, ri, u_re, dx, B, H, WC, s);
+  if (dtype == 0) return launch_expand_f32(K, vr_t, vi_t, rr, ri, u_re, dx, B, H, WC, s);
+  if (dtype == 1) return launch_expand_bf16(K, vr_t, vi_t, rr, ri, u_re, dx, B, H, WC, s);
   return cudaErrorInvalidValue;
 }

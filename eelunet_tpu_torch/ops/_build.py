@@ -3,8 +3,9 @@ them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles into its own
 shared library, ``build/lib<name>-<hash>.so`` inside this package (listed in
-``.gitignore``). The hash covers the source and the flags, so an edited
-source builds anew and an unchanged one loads what is there. Any build or
+``.gitignore``). The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header builds anew
+and an unchanged one loads what is there. Any build or
 load error raises: there is no fallback.
 """
 
@@ -46,7 +47,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

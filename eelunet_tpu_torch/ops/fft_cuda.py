@@ -4,12 +4,16 @@
 Forward (``csrc/highpass.cu``):
 
   kernel 1, ``highpass_contract``: T = V_H x per image, as (B, K, W*C) f32
-      real and imaginary parts — one read of x, a skinny write.
+      real and imaginary parts — one read of x, a skinny write. In bf16 it
+      runs on the tensor cores (``contract_kernel_tc``: mma.sync bf16 with
+      f32 sums, x and the stacked [V_r^T | V_i^T] through a cp.async ring;
+      bound by bytes, 0.32 ms at (16,512,512,64) on an NVIDIA H100 80GB
+      HBM3 at 700 W); in f32 on CUDA cores, exact f32 products.
   middle: contract and expand the W axis on the skinny T — four einsums in
       float32 per complex product (``fft_pallas.py:273-285``), K rows only.
   kernel 2, ``highpass_expand``: out = |x - U_H S|, the low-pass rows rebuilt
       per column in registers and fused with the residual and the clamped
-      magnitude — one read of x and S, one write.
+      magnitude — one read of x and S, one write. CUDA cores, f32.
 
 Backward (``csrc/highpass_bwd.cu``), the analytic adjoint on the saved S
 (``fft_pallas.py:324-386, 453-527``):
@@ -17,10 +21,18 @@ Backward (``csrc/highpass_bwd.cu``), the analytic adjoint on the saved S
   kernel 3, ``highpass_bwd_contract``: z = x - U_H S rebuilt per column,
       u = g z/|z| (0 under the clamp), Re u written in x's type and
       T = U_H^T conj(u) accumulated in f32. g has x's type, as autograd
-      gives it.
+      gives it. CUDA cores, f32.
   middle: the forward middle in reverse (``fft_pallas.py:496-509``):
       ``w_axis_middle`` with U_W^T and V_W^T in the places of V_W and U_W.
-  kernel 4, ``highpass_bwd_expand``: dx = Re u - Re(V_H^T R) in x's type.
+  kernel 4, ``highpass_bwd_expand``: dx = Re u - Re(V_H^T R) in x's type. In
+      bf16 it runs on the tensor cores (``bwd_expand_kernel_tc``: dx = u - A R
+      with A = [V_r^T | -V_i^T] and R rounded to TF32, f32 sums; bound by
+      bytes, 0.34 ms at (8,512,512,64) on the same card); in f32 on CUDA
+      cores, since TF32 would miss f32's 1e-5.
+
+The tensor-core kernels read the stacked operands through the two (H, K)
+halves the wrappers are given, so no stacked copy is made or cached; the
+factor halves must be 16-byte aligned (fresh ``factor_tensors`` are).
 
 ``HighPassFunction`` ties the four together for autograd, saving (x, S_r,
 S_i) as the JAX VJP does (``fft_pallas.py:664-671``).
@@ -155,11 +167,12 @@ def _check(name: str, x3: torch.Tensor, k: int) -> int:
     return _DTYPE_CODE[x3.dtype]
 
 
-def _operand(name: str, t: torch.Tensor, shape, dtype, device) -> int:
+def _operand(name: str, t: torch.Tensor, shape, dtype, device, align: int = 1) -> int:
     if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device \
-            or not t.is_contiguous():
+            or not t.is_contiguous() or t.data_ptr() % align:
         raise ValueError(f"{name}: operand {tuple(t.shape)} {t.dtype} {t.device} "
-                         f"does not match {tuple(shape)} {dtype} {device} contiguous")
+                         f"does not match {tuple(shape)} {dtype} {device} contiguous, "
+                         f"{align}-byte aligned")
     return t.data_ptr()
 
 
@@ -205,7 +218,8 @@ def highpass_contract(x3: torch.Tensor, vr_t: torch.Tensor, vi_t: torch.Tensor):
     b, h, wc = x3.shape
     k = vr_t.shape[1]
     code = _check("highpass_contract", x3, k)
-    ptrs = [_operand("highpass_contract", t, (h, k), x3.dtype, x3.device)
+    # The tensor-core kernels copy factor rows in 16-byte pieces.
+    ptrs = [_operand("highpass_contract", t, (h, k), x3.dtype, x3.device, align=16)
             for t in (vr_t, vi_t)]
     tr = torch.empty((b, k, wc), dtype=torch.float32, device=x3.device)
     ti = torch.empty_like(tr)
@@ -278,7 +292,7 @@ def highpass_bwd_expand(u_re: torch.Tensor, vr_t: torch.Tensor, vi_t: torch.Tens
     k = vr_t.shape[1]
     code = _check(name, u_re, k)
     f32 = torch.float32
-    ptrs = [_operand(name, t, (h, k), f32, u_re.device) for t in (vr_t, vi_t)]
+    ptrs = [_operand(name, t, (h, k), f32, u_re.device, align=16) for t in (vr_t, vi_t)]
     ptrs += [_operand(name, t, (b, k, wc), f32, u_re.device) for t in (rr, ri)]
     dx = torch.empty_like(u_re)
     err = _lib("highpass_bwd").eelunet_highpass_bwd_expand(

@@ -106,6 +106,58 @@ def test_bwd_kernels_match_plain_twins(cuda, shape, mask_range, dtype, tol):
     assert _rel_l2(uk, up) <= tol and _rel_l2(dk, dp) <= tol
 
 
+# Tiles of the tensor-core kernels 1 (128 columns x 32 rows of H) and 4
+# (128 columns x 64 rows) left ragged: (B,H,W,C), mask_range -> K.
+# W*C odd (99, 225), even but not a multiple of 4 (150) or of 8 (132), a
+# multiple of 8 but not of 128 (408); H a multiple of none, of 32 but not
+# 64 (96); B = 1; K = 16, 32, 48, 64.
+TC_CASES = [((1, 40, 33, 3), 6), ((2, 70, 50, 3), 12), ((1, 100, 45, 5), 20),
+            ((2, 130, 66, 2), 32), ((1, 96, 136, 3), 20)]
+
+
+def _offset_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in storage one element past an aligned start: rows
+    that are no longer 16-byte aligned, so the kernels take their
+    element-by-element path."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape,mask_range", TC_CASES)
+def test_tc_kernels_ragged_tiles(cuda, shape, mask_range, dtype, tol, misaligned):
+    """Kernels 1 and 4 against their twins where their tiles do not fit:
+    T within 1e-5 of max|T| (f32 sums of the same products), dx within
+    ``tol`` in relative L2 (bf16: TF32 operands and one bf16 rounding)."""
+    b, h, w, c = shape
+    x = _x(shape, dtype, cuda, seed=4)
+    u = _x(shape, dtype, cuda, seed=5)
+    x3, u3 = x.view(b, h, w * c), u.view(b, h, w * c)
+    if misaligned:
+        x3, u3 = _offset_copy(x3), _offset_copy(u3)
+    vr_t, vi_t, *_ = fft_cuda.factor_tensors(h, w, mask_range, dtype, cuda)
+    vr32, vi32, *_ = fft_cuda.factor_tensors(h, w, mask_range, torch.float32, cuda)
+    k = vr_t.shape[1]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    r = [torch.randn((b, k, w * c), generator=g, device=cuda) for _ in range(2)]
+    if misaligned:
+        r = [_offset_copy(t) for t in r]
+    fft_cuda.reset_launches()
+    with torch.inference_mode():
+        tk = fft_cuda.highpass_contract(x3, vr_t, vi_t)
+        dk = fft_cuda.highpass_bwd_expand(u3, vr32, vi32, *r)
+    torch.cuda.synchronize()
+    assert fft_cuda.LAUNCHES["highpass_contract"] == fft_cuda.LAUNCHES["highpass_bwd_expand"] == 1
+    tp = fft_cuda.highpass_contract_plain(x3, vr_t, vi_t)
+    dp = fft_cuda.highpass_bwd_expand_plain(u3, vr32, vi32, *r)
+    assert tk[0].shape == (b, k, w * c) and dk.dtype == dtype and dk.shape == u3.shape
+    assert _rel(tk[0], tp[0]) <= 1e-5 and _rel(tk[1], tp[1]) <= 1e-5
+    assert _rel_l2(dk, dp) <= tol
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_function_grad_matches_lowrank_autograd(cuda, dtype, tol):
     """The whole Function's gradient (four kernel launches) against autograd

@@ -151,3 +151,44 @@ def paired_train_steps(variables, batches, float64: bool, cfg=CFG):
     grad_j = {k: mu1[k].to(tdt) / 0.1 - wd * init[k] for k in grad_t}
     return {"loss_j": np.array(loss_j), "loss_t": np.array(loss_t), "want": want,
             "pstate": pstate, "init": init, "grad_j": grad_j, "grad_t": grad_t}
+
+
+# ------------------------------------------ the tensor-core kernels' arithmetic
+
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 (10 mantissa bits), round to nearest even, kept as
+    float32 with the low 13 bits zero; infinities and NaNs pass through.
+    The rounding kernel 4 applies to A and R before its TF32 products
+    (``to_tf32`` in ``csrc/highpass_bwd.cu``)."""
+    bits = t.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    finite = (bits & 0x7F800000) != 0x7F800000
+    rounded = (bits + 0xFFF + ((bits >> 13) & 1)) & 0xFFFFE000
+    out = torch.where(finite, rounded, bits)
+    out = torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)
+    return out.view(torch.float32).view(t.shape)
+
+
+def stacked_factors(vr_t: torch.Tensor, vi_t: torch.Tensor):
+    """The operands the tensor-core kernels read through two pointers each:
+    kernel 1's stacked V_H^T = [V_r^T | V_i^T] and kernel 4's
+    A = [V_r^T | -V_i^T], both (H, 2K)."""
+    return torch.cat([vr_t, vi_t], dim=1), torch.cat([vr_t, -vi_t], dim=1)
+
+
+def contract_tc_emulated(x3: torch.Tensor, vr_t: torch.Tensor, vi_t: torch.Tensor):
+    """Kernel 1's arithmetic on the tensor cores: one product of the stacked
+    V_H (2K, H) and x (H, W*C) per image, bf16 operands (exact products in
+    f32), f32 sums; split into (T_r, T_i)."""
+    v_stack, _ = stacked_factors(vr_t, vi_t)
+    t = torch.einsum("hk,bhj->bkj", v_stack.float(), x3.float())
+    k = vr_t.shape[1]
+    return t[:, :k].contiguous(), t[:, k:].contiguous()
+
+
+def bwd_expand_tf32_emulated(u_re, vr_t, vi_t, rr, ri):
+    """Kernel 4's arithmetic in a bf16 model: A and R rounded to TF32, the
+    products summed in f32, subtracted from f32(u), rounded to u's type."""
+    _, a = stacked_factors(vr_t, vi_t)
+    r = torch.cat([rr, ri], dim=1)
+    adj = torch.einsum("hk,bkj->bhj", round_tf32(a), round_tf32(r))
+    return (u_re.float() - adj).to(u_re.dtype)
