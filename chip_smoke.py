@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; none is skipped):
    sm_90a, one nvcc per source, all started together; print the build time
    and ptxas' register report, and, where the toolkit has ``cuobjdump``,
    the count of tensor-core instructions (HMMA/HGMMA) in the SASS of the
-   two tensor-core kernels (kernel 1, ``contract_kernel_tc``; kernel 4,
+   four tensor-core kernels (kernel 1, ``contract_kernel_tc``; kernel 2,
+   ``expand_kernel_tc``; kernel 3, ``bwd_contract_kernel_tc``; kernel 4,
    ``bwd_expand_kernel_tc``), which must be above 0 for every K.
 3. The forward kernels against their plain PyTorch twins at the serving
    path's two high-pass sites, (16,256,256,128) and (16,512,512,64), m = 20,
@@ -19,7 +20,9 @@ Phases (any failure exits non-zero; none is skipped):
    path. Errors are relative to max|reference|: <= 1e-4 in float32,
    <= 2e-2 in bfloat16. Kernel, twin and library times come from CUDA
    events; each kernel's bound is computed from its shapes and printed with
-   the kernel's share of it. Kernel 1 is timed in turns with its yardstick,
+   the kernel's share of it, and beside it the floor of the arithmetic the
+   kernel does (its products at the peak of their type). Kernel 1 is timed
+   in turns with its yardstick,
    one ``torch.bmm`` that writes T in f32 (kernel, bmm, bmm, kernel).
 3b. The backward kernels against their twins at the training path's sites,
    (8,256,256,128) and (8,512,512,64), m = 20, in float32 and bfloat16:
@@ -44,8 +47,8 @@ Phases (any failure exits non-zero; none is skipped):
 5. In-process, the same weights at 512^2 batch 16: both forward kernels
    launch exactly twice per forward; the kernel path agrees with the plain
    path (float32 at batch 2, bfloat16 at batch 16, bounds printed); the
-   forward time per batch is printed beside its reading with kernels 1
-   and 4 on CUDA cores.
+   forward time per batch is printed beside its reading with kernels 2
+   and 3 on CUDA cores.
 6. In-process training at full width, 512^2, batch 8, bf16 autocast on f32
    weights, seeded synthetic batches, 6 steps of the port's train step: each
    of the four kernels launches exactly twice per step and the loss stays
@@ -53,7 +56,7 @@ Phases (any failure exits non-zero; none is skipped):
    from the same state, agree on loss and gradient norm (float32 at batch 2
    and bfloat16 at batch 8, bounds printed). The step time of both paths
    (CUDA events, warm, in turns), img/s and the peak memory are printed,
-   the step time beside its readings with kernels 1 and 4 on CUDA cores.
+   the step time beside its reading with kernels 2 and 3 on CUDA cores.
 7. Train through the entry point a user runs: ``python -m
    eelunet_tpu_torch.cli.train --model_type eelunet --image_size 512
    --batch_size 8 --set model.dtype=bfloat16 --epochs 2`` on a synthetic
@@ -176,13 +179,16 @@ CANNY_FLOPS = {"zero": 36, "improve": 38}
 # cores, f32 on CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
-# Readings with kernels 1 and 4 on CUDA cores (their first versions), on an
-# NVIDIA H100 80GB HBM3 at 700.00 W, printed beside this run's: the served
-# forward (512^2 b16 bf16) and the train step (512^2 b8 bf16, two calls).
-CUDA_CORE_FORWARD_MS = 65.43
-CUDA_CORE_STEP_MS = (117.98, 122.57)
-# The two kernels on tensor cores and their functions in the SASS.
+# Readings with kernels 2 and 3 on CUDA cores (their earlier versions;
+# kernels 1 and 4 on the tensor cores), on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, printed beside this run's: the served forward (512^2 b16 bf16)
+# and the train step (512^2 b8 bf16).
+CUDA_CORE_23_FORWARD_MS = 62.01
+CUDA_CORE_23_STEP_MS = 114.69
+# The kernels on tensor cores and their functions in the SASS.
 TC_KERNELS = {"highpass_contract": ("highpass", "contract_kernel_tc"),
+              "highpass_expand": ("highpass", "expand_kernel_tc"),
+              "highpass_bwd_contract": ("highpass_bwd", "bwd_contract_kernel_tc"),
               "highpass_bwd_expand": ("highpass_bwd", "bwd_expand_kernel_tc")}
 
 
@@ -214,34 +220,70 @@ def rel_err(got, want) -> tuple:
     return d, d / max(want.float().abs().max().item(), 1e-30)
 
 
-def arithmetic(name: str, dname: str) -> str:
-    """The arithmetic of a high-pass kernel in a model of type ``dname``:
-    float32 models run f32 throughout. In a bf16 model, kernel 1 multiplies
-    bf16 x by a bf16 V_H; kernels 2-4 multiply f32 factors and spectra, which
-    the tensor cores take at best in TF32 (kernel 4 does)."""
+def work_arithmetic(name: str, dname: str) -> str:
+    """The type of the products of a high-pass kernel's work in a model of
+    type ``dname``, whose peak its bound takes: float32 models run f32
+    throughout. In a bf16 model, kernel 1 multiplies bf16 x by a bf16 V_H;
+    kernels 2-4 multiply f32 factors and spectra, which the tensor cores
+    take at best in TF32."""
     if dname == "float32":
         return "float32"
     return "bfloat16" if name == "highpass_contract" else "tf32"
+
+
+# What each kernel does in a bf16 model (csrc/tc_bf16.cuh), as (name, the
+# bf16 products it issues per product of its work): kernel 2 splits f32
+# operands into two bf16 pieces and takes three products (bf16x3); kernel 3
+# rebuilds z with three pieces and six products (bf16x6), then sums T in
+# bf16x3, so 4.5 per product of its work (two thirds of them the rebuild's).
+KERNEL_ARITHMETIC = {"highpass_contract": ("bfloat16", 1.0),
+                     "highpass_expand": ("bf16x3", 3.0),
+                     "highpass_bwd_contract": ("bf16x6 rebuild, bf16x3 T", 4.5),
+                     "highpass_bwd_expand": ("tf32", 1.0)}
+
+
+def arithmetic(name: str, dname: str) -> str:
+    """The arithmetic a high-pass kernel does in a model of type ``dname``."""
+    return "float32" if dname == "float32" else KERNEL_ARITHMETIC[name][0]
+
+
+def _bytes_fma(name: str, shape, dname: str, k: int) -> tuple:
+    """(bytes, FMAs per element of x) of one launch of kernel ``name``."""
+    b, h, w, c = shape
+    n = b * h * w * c                 # elements of x
+    sx = 2 if dname == "bfloat16" else 4
+    skinny = 2 * b * k * w * c * 4    # a (re, im) pair of (B,K,W*C) f32
+    factors = 2 * h * k * 4           # a (re, im) pair of (H,K) f32
+    return {
+        "highpass_contract": (n * sx + factors + skinny, 2 * k),   # x -> T
+        "highpass_expand": (2 * n * sx + factors + skinny, 4 * k),  # x, S -> out
+        "highpass_bwd_contract": (3 * n * sx + factors + 2 * skinny, 8 * k),  # x, g, S -> u, T
+        "highpass_bwd_expand": (2 * n * sx + factors + skinny, 2 * k),  # R, u -> dx
+    }[name]
+
+
+def arithmetic_floor(name: str, shape, dname: str, k: int) -> float:
+    """ms of the products kernel ``name`` issues in its arithmetic, at the
+    peak of their type: its work's FLOPs times the products per product of
+    the work (KERNEL_ARITHMETIC), over the bf16, TF32 or f32 peak."""
+    b, h, w, c = shape
+    _, fma = _bytes_fma(name, shape, dname, k)
+    if dname == "float32":
+        return 2 * fma * b * h * w * c / PEAK_FLOPS["float32"] * 1e3
+    arith, passes = KERNEL_ARITHMETIC[name]
+    peak = PEAK_FLOPS["tf32" if arith == "tf32" else "bfloat16"]
+    return passes * 2 * fma * b * h * w * c / peak * 1e3
 
 
 def kernel_bound(name: str, shape, dname: str, k: int) -> tuple:
     """(bound_ms, bound_by) of one launch of kernel ``name`` on an NHWC
     ``shape`` in ``dname``: the larger of its bytes (each input read once,
     each output written once) over the HBM rate and its FLOPs over the peak
-    for its arithmetic."""
+    for the type of its work's products (``work_arithmetic``)."""
     b, h, w, c = shape
-    n = b * h * w * c                 # elements of x
-    sx = 2 if dname == "bfloat16" else 4
-    skinny = 2 * b * k * w * c * 4    # a (re, im) pair of (B,K,W*C) f32
-    factors = 2 * h * k * 4           # a (re, im) pair of (H,K) f32
-    nbytes, fma = {
-        "highpass_contract": (n * sx + factors + skinny, 2 * k),   # x -> T
-        "highpass_expand": (2 * n * sx + factors + skinny, 4 * k),  # x, S -> out
-        "highpass_bwd_contract": (3 * n * sx + factors + 2 * skinny, 8 * k),  # x, g, S -> u, T
-        "highpass_bwd_expand": (2 * n * sx + factors + skinny, 2 * k),  # R, u -> dx
-    }[name]
+    nbytes, fma = _bytes_fma(name, shape, dname, k)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * fma * n / PEAK_FLOPS[arithmetic(name, dname)] * 1e3
+    t_ops = 2 * fma * b * h * w * c / PEAK_FLOPS[work_arithmetic(name, dname)] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -383,7 +425,9 @@ def _print_rows(phase, rows, shape, dname, tol, k, metric="rel"):
         if name in HIGHPASS:
             bound_ms, bound_by = kernel_bound(name, shape, dname, k)
             extra = (f"  bound {bound_ms:.3f} ms ({bound_by}, "
-                     f"{arithmetic(name, dname)}; {100 * bound_ms / ms:.1f}% of it)")
+                     f"{work_arithmetic(name, dname)}; {100 * bound_ms / ms:.1f}% of it); "
+                     f"floor of its arithmetic ({arithmetic(name, dname)}) "
+                     f"{arithmetic_floor(name, shape, dname, k):.3f} ms")
         if lib_ms is not None:
             extra += f"  library {lib_ms:.3f} ms"
         print(f"[{phase}] {name:21s} {str(shape):22s} {dname:8s} max|d| {abs_e:.3e} "
@@ -804,8 +848,8 @@ def phase_model(sd, cfg):
                 ms_k = cuda_ms(lambda: kern(xb), iters=5)
                 ms_p = cuda_ms(lambda: plain(xb), iters=5)
                 print(f"[5] forward 512^2 b16 bf16 (BN folded): {ms_k:.2f} ms/batch with the "
-                      f"kernels ({16e3 / ms_k:.1f} img/s; {CUDA_CORE_FORWARD_MS} ms with kernels 1 "
-                      f"and 4 on CUDA cores, on an NVIDIA H100 80GB HBM3 at 700.00 W), "
+                      f"kernels ({16e3 / ms_k:.1f} img/s; {CUDA_CORE_23_FORWARD_MS} ms with "
+                      f"kernels 2 and 3 on CUDA cores, on an NVIDIA H100 80GB HBM3 at 700.00 W), "
                       f"{ms_p:.2f} ms/batch with the plain "
                       f"high-pass; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
                       "GiB", flush=True)
@@ -887,8 +931,8 @@ def phase_train(workdir: str):
     ms_k, ms_p = (float(np.mean(times[k])) for k in ("auto", "lowrank"))
     print(f"[6] train step 512^2 b8 bf16: {ms_k:.2f} ms/step with the kernels "
           f"({8e3 / ms_k:.1f} img/s; turns {[round(t, 2) for t in times['auto']]}; "
-          f"{CUDA_CORE_STEP_MS[0]}-{CUDA_CORE_STEP_MS[1]} ms with kernels 1 and 4 on CUDA "
-          f"cores, on an NVIDIA H100 80GB HBM3 at 700.00 W), "
+          f"{CUDA_CORE_23_STEP_MS} ms with kernels 2 and 3 on CUDA cores, on an NVIDIA "
+          f"H100 80GB HBM3 at 700.00 W), "
           f"{ms_p:.2f} ms/step with highpass_impl=lowrank "
           f"(turns {[round(t, 2) for t in times['lowrank']]})", flush=True)
 

@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernels of eelunet_tpu/ops/fft_pallas.py:
 //   contract_kernel_tc (bf16) and contract_kernel (f32)
 //                    <- _contract_kernel / _contract_kernel_4d (:106 / :129)
-//   expand_kernel    <- _expand_kernel   / _expand_kernel_4d   (:167 / :147)
+//   expand_kernel_tc (bf16) and expand_kernel (f32)
+//                    <- _expand_kernel   / _expand_kernel_4d   (:167 / :147)
 // both launched there by _fwd_core (:205). The math is that of
 // eelunet_tpu_torch/ops/fft.py: with x viewed as (B, H, W*C),
 //   contract:  T[b] = V_H x[b]                      T: (B, K, W*C) complex, f32
@@ -33,19 +34,44 @@
 //   - rows of x that are not 16-byte aligned (W*C not a multiple of 8, or a
 //     misaligned base) and ragged pieces are copied element by element.
 // Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 3):
-// 0.324 ms at (16,512,512,64), 68% of its bound, and 0.220 ms at
+// 0.350 ms at (16,512,512,64), 63% of its bound, and 0.222 ms at
 // (16,256,256,128), against 2.57 and 1.31 ms for the CUDA-core version it
-// replaces and 0.245 and 0.165 ms for one torch.bmm writing f32.
+// replaces and 0.249 and 0.167 ms for one torch.bmm writing f32.
 // In float32 the contract stays on CUDA cores (contract_kernel): exact f32
 // products, which TF32 would not give.
 //
-// The expand (and the f32 contract) keep the first version's design on
-// CUDA cores in f32: one thread owns one column j of the (H, W*C) image and
-// walks all of H; the K-row factor matrix is staged in shared memory a
+// The expand in bf16, expand_kernel_tc. Its factors U_H and spectrum S are
+// f32 (the semantics of _fwd_core), and it does 4K FMAs per element of x:
+// 1.0e11 at (16,512,512,64), 1.54 ms on CUDA cores in f32 against a 0.381
+// ms bound from bytes (x and S read, out written). The tensor cores take f32
+// at best in TF32, and one pass of TF32 misses the bf16 bound where the mask
+// keeps the whole spectrum (|z| is then a small difference of large terms:
+// 0.21 of max|out|, tests/test_torch_port_highpass_split.py). So it runs in
+// bf16x3 (tc_bf16.cuh): U_H and S split into two bf16 pieces, three
+// products, f32 sums, within 2^-16 of f32; its floor at the bf16 peak is
+// 0.313 ms. The design, kernel 4's shape with the roles of the operands:
+//   - out = |x - Ue [S_r; S_i]| per image, Ue the stacked, split U_H made
+//     once with the factors; a block owns a strip of 128 columns and walks
+//     H in chunks of 32 rows through a 3-slot cp.async ring (the chunk's
+//     Ue rows and x tile);
+//   - warp w owns 16 columns and holds their S, split in registers, as B
+//     fragments for the whole of H (48 registers at K = 48);
+//   - Ue's rows alternate 8 rows of A_re = [U_r | -U_i] and 8 of
+//     A_im = [U_i | U_r], so one m16 tile of mma.sync.m16n8k16 gives each
+//     lane lr and li of the same two pixels and the epilogue needs no
+//     shuffle; out overwrites x in the slot and leaves in 16-byte stores.
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase 3):
+// 1.119 ms at (16,512,512,64), 34% of its bound, and 0.612 ms at
+// (16,256,256,128), against 3.36 and 1.71 ms for the CUDA-core version;
+// 118 registers at K = 48, no spills. It is bound by neither bytes nor
+// products alone: leaving out the Ue reloads, the x loads or the stores
+// each saved a small part of its time, and a wgmma version (S^T in
+// registers, Ue read once per warpgroup from shared memory) took as long.
+// In float32 the expand (and the f32 contract) keep the first version's
+// design on CUDA cores: one thread owns one column j of the (H, W*C) image
+// and walks all of H; the K-row factor matrix is staged in shared memory a
 // chunk of rows at a time and read as float4 broadcasts, four FMAs per
-// load; the expand keeps its column of S (2K values) in registers. The
-// expand does 4K FMAs per element of x, so it is bound by operations there
-// (3.36 ms against 0.381 ms of bytes at the 512 site).
+// load; the expand keeps its column of S (2K values) in registers.
 //
 // Interface: plain C functions, loaded with ctypes. Each launches on the
 // stream it is given and returns cudaGetLastError() (0 on success).
@@ -55,7 +81,7 @@
 
 #include <cstdint>
 
-#include "async_copy.cuh"
+#include "tc_bf16.cuh"
 
 namespace {
 
@@ -63,22 +89,17 @@ constexpr int kThreads = 128;  // columns per block
 constexpr int kRows = 32;      // factor rows staged in shared memory per step
 constexpr float kEps = 1e-24f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
 // Stage rows [h0, h0 + rows) of two (H, K) row-major matrices into shared
-// memory as float: row r holds a[h0 + r, 0:K] then b[h0 + r, 0:K].
-template <typename F, int K>
-__device__ __forceinline__ void stage_rows(float* s, const F* __restrict__ a,
-                                           const F* __restrict__ b, int h0, int rows) {
+// memory: row r holds a[h0 + r, 0:K] then b[h0 + r, 0:K].
+template <int K>
+__device__ __forceinline__ void stage_rows(float* s, const float* __restrict__ a,
+                                           const float* __restrict__ b, int h0, int rows) {
   for (int i = threadIdx.x; i < rows * K; i += kThreads) {
     const int r = i / K;
     const int k = i - r * K;
     const size_t src = static_cast<size_t>(h0 + r) * K + k;
-    s[r * 2 * K + k] = to_f32(a[src]);
-    s[r * 2 * K + K + k] = to_f32(b[src]);
+    s[r * 2 * K + k] = a[src];
+    s[r * 2 * K + K + k] = b[src];
   }
 }
 
@@ -103,7 +124,7 @@ contract_kernel(const float* __restrict__ x, const float* __restrict__ vr_t,
   for (int h0 = 0; h0 < H; h0 += kRows) {
     const int rows = min(kRows, H - h0);
     __syncthreads();  // the previous chunk has been read by every thread
-    stage_rows<float, K>(reinterpret_cast<float*>(sv), vr_t, vi_t, h0, rows);
+    stage_rows<K>(reinterpret_cast<float*>(sv), vr_t, vi_t, h0, rows);
     __syncthreads();
     if (j < WC) {
       for (int r = 0; r < rows; ++r) {
@@ -135,13 +156,13 @@ contract_kernel(const float* __restrict__ x, const float* __restrict__ vr_t,
   }
 }
 
-// grid (ceil(WC / kThreads), B); x, out (B, H, WC); ur, ui (H, K) f32;
-// sr, si (B, K, WC) f32.
-template <typename T, int K>
+// grid (ceil(WC / kThreads), B); x, out (B, H, WC), ur, ui (H, K) and
+// sr, si (B, K, WC), all f32.
+template <int K>
 __global__ void __launch_bounds__(kThreads)
-expand_kernel(const T* __restrict__ x, const float* __restrict__ ur,
+expand_kernel(const float* __restrict__ x, const float* __restrict__ ur,
               const float* __restrict__ ui, const float* __restrict__ sr,
-              const float* __restrict__ si, T* __restrict__ out, int H, int WC) {
+              const float* __restrict__ si, float* __restrict__ out, int H, int WC) {
   __shared__ float4 su[kRows][K / 2];  // per row: U_r then U_i
   const int j = blockIdx.x * kThreads + threadIdx.x;
   const int b = blockIdx.y;
@@ -157,7 +178,7 @@ expand_kernel(const T* __restrict__ x, const float* __restrict__ ur,
   for (int h0 = 0; h0 < H; h0 += kRows) {
     const int rows = min(kRows, H - h0);
     __syncthreads();
-    stage_rows<float, K>(reinterpret_cast<float*>(su), ur, ui, h0, rows);
+    stage_rows<K>(reinterpret_cast<float*>(su), ur, ui, h0, rows);
     __syncthreads();
     if (j < WC) {
       for (int r = 0; r < rows; ++r) {
@@ -186,9 +207,9 @@ expand_kernel(const T* __restrict__ x, const float* __restrict__ ur,
           ir = fmaf(c.w, cr[4 * q + 3], ir);
         }
         const size_t at = base + static_cast<size_t>(h0 + r) * WC + j;
-        const float zr = to_f32(x[at]) - (rr - ii);
+        const float zr = x[at] - (rr - ii);
         const float zi = ri + ir;
-        store(out + at, sqrtf(fmaxf(zr * zr + zi * zi, kEps)));
+        out[at] = sqrtf(fmaxf(zr * zr + zi * zi, kEps));
       }
     }
   }
@@ -213,23 +234,6 @@ template <int K>
 constexpr int kSlot = kTcRows * (kXPitch + kVPitch<K>);  // bf16 per ring slot
 template <int K>
 constexpr int kTcSmemBytes = kTcStages * kSlot<K> * 2;
-
-// Four 8x8 b16 matrices, transposed: lane l gives the row address of
-// matrix l / 8, row l % 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Fill one ring slot: rows [h0, h0 + kTcRows) of the block's x strip
 // [j0, j0 + kTcCols) and of the stacked (H, 2K) factor [V_r^T | V_i^T],
@@ -391,6 +395,139 @@ cudaError_t contract_tc(const void* x, const void* vr_t, const void* vi_t, void*
   return cudaGetLastError();
 }
 
+// ------------------------------------------------ kernel 2 on tensor cores (bf16)
+//
+// out = |x - U_H S| per image as the product Ue [S_r; S_i] (2K deep) in
+// bf16x3 (tc_bf16.cuh): a block owns a strip of kXpCols columns and walks H
+// in chunks of kXpRows rows through a kXpStages<K>-deep cp.async ring (the
+// chunk's 2 kXpRows Ue rows and its x tile); warp w owns 16 of the strip's
+// columns and holds their S, split, as B fragments in registers for the
+// whole of H. An m16 tile of the product gives lr and li of 8 rows of H, so
+// the epilogue (zr = x - lr, sqrt(max(zr^2 + li^2, 1e-24))) needs no
+// shuffle; it writes out over x in the slot, and the tile leaves in 16-byte
+// stores.
+constexpr int kXpThreads = 256;             // 8 warps
+constexpr int kXpCols = 128;                // columns per block: 16 per warp
+constexpr int kXpRows = 32;                 // rows of H per chunk: 4 m16 tiles
+constexpr int kXpXPitch = kXpCols + 8;      // bf16 per staged x row: 68 words, = 4 mod 32
+template <int K>
+constexpr int kXpSlot = 2 * kXpRows * kUePitch<K, 2> + kXpRows * kXpXPitch;  // bf16
+// Ring depth: 3 slots where 2 blocks of them fit an SM (K <= 48), else 2.
+template <int K>
+constexpr int kXpStages = K <= 48 ? 3 : 2;
+template <int K>
+constexpr int kXpSmemBytes = kXpStages<K> * kXpSlot<K> * 2;
+constexpr int kXpM = 2;  // m16 tiles whose accumulators are live at once
+
+template <int K>
+__device__ __forceinline__ void expand_fill(__nv_bfloat16* slot, const __nv_bfloat16* __restrict__ ue,
+                                            const __nv_bfloat16* __restrict__ xb, int c, int j0,
+                                            int H, int WC, bool vec) {
+  load_ue<K, 2, kXpRows / 8, kXpThreads>(slot, ue, c * kXpRows / 8, (H + 7) / 8);
+  load_tile<kXpRows, kXpCols, kXpXPitch, kXpThreads>(slot + 2 * kXpRows * kUePitch<K, 2>, xb,
+                                                      c * kXpRows, j0, H, WC, vec);
+}
+
+// grid (ceil(WC / kXpCols), B), kXpThreads threads, kXpSmemBytes<K> of
+// dynamic shared memory; x, out (B, H, WC) bf16; ue (16 ceil(H/8), 6K)
+// bf16, of which it reads pieces 0 and 1; sr, si (B, K, WC) f32. vec: x's
+// and out's rows are 16-byte aligned.
+template <int K>
+__global__ void __launch_bounds__(kXpThreads, 2)
+expand_kernel_tc(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ ue,
+                 const float* __restrict__ sr, const float* __restrict__ si,
+                 __nv_bfloat16* __restrict__ out, int H, int WC, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  constexpr int kStages = kXpStages<K>;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wcol = (threadIdx.x >> 5) * 16;  // the warp's 16 columns of the strip
+  const int j0 = blockIdx.x * kXpCols;
+  const int b = blockIdx.y;
+  const size_t base = static_cast<size_t>(b) * H * WC;
+  const int n_chunks = (H + kXpRows - 1) / kXpRows;
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_chunks) expand_fill<K>(ring + s * kXpSlot<K>, ue, x + base, s, j0, H, WC, vec);
+    cp_async_commit();
+  }
+  unsigned sf[2][2 * K / 16][2][2];  // S, hi and lo
+  load_s_frags<K, 2>(sf, sr, si, b, j0 + wcol, WC);
+
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<kStages - 2>();  // chunk c has landed (this thread's pieces)
+    __syncthreads();               // everyone's; the slot of chunk c - 1 is free
+    const int next = c + kStages - 1;
+    if (next < n_chunks)
+      expand_fill<K>(ring + (next % kStages) * kXpSlot<K>, ue, x + base, next, j0, H, WC, vec);
+    cp_async_commit();
+    const __nv_bfloat16* us = ring + (c % kStages) * kXpSlot<K>;
+    __nv_bfloat16* xs = ring + (c % kStages) * kXpSlot<K> + 2 * kXpRows * kUePitch<K, 2>;
+#pragma unroll
+    for (int mp = 0; mp < kXpRows / 8; mp += kXpM) {
+      float acc[kXpM][2][4];
+#pragma unroll
+      for (int m = 0; m < kXpM; ++m)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][nt][e] = 0.f;
+      rebuild<K, 2, kXpM, false>(acc, us, mp, sf);
+#pragma unroll
+      for (int m = 0; m < kXpM; ++m)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          unsigned* p = reinterpret_cast<unsigned*>(xs + ((mp + m) * 8 + g) * kXpXPitch + wcol +
+                                                    nt * 8 + t4 * 2);
+          const unsigned w = *p;
+          const float zr0 = __uint_as_float(w << 16) - acc[m][nt][0];
+          const float zr1 = __uint_as_float(w & 0xffff0000u) - acc[m][nt][1];
+          const float li0 = acc[m][nt][2];
+          const float li1 = acc[m][nt][3];
+          *p = bf16x2_bits(__floats2bfloat162_rn(sqrtf(fmaxf(zr0 * zr0 + li0 * li0, kEps)),
+                                                 sqrtf(fmaxf(zr1 * zr1 + li1 * li1, kEps))));
+        }
+    }
+    __syncthreads();
+    store_tile<kXpRows, kXpCols, kXpXPitch, kXpThreads>(out + base, xs, c * kXpRows, j0, H, WC,
+                                                        vec);
+  }
+}
+
+template <int K>
+cudaError_t expand_tc(const void* x, const void* ue, const void* sr, const void* si, void* out,
+                      int B, int H, int WC, cudaStream_t s) {
+  constexpr int smem = kXpSmemBytes<K>;
+  static bool configured = false;  // the attribute is set once per instantiation
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        expand_kernel_tc<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  const bool vec = WC % 8 == 0 && addr(x) % 16 == 0 && addr(out) % 16 == 0;
+  const dim3 grid((WC + kXpCols - 1) / kXpCols, B);
+  expand_kernel_tc<K><<<grid, kXpThreads, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(ue),
+      static_cast<const float*>(sr), static_cast<const float*>(si),
+      static_cast<__nv_bfloat16*>(out), H, WC, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_expand_bf16(int K, const void* x, const void* ue, const void* sr,
+                               const void* si, void* out, int B, int H, int WC, cudaStream_t s) {
+  switch (K) {
+    case 16: return expand_tc<16>(x, ue, sr, si, out, B, H, WC, s);
+    case 32: return expand_tc<32>(x, ue, sr, si, out, B, H, WC, s);
+    case 48: return expand_tc<48>(x, ue, sr, si, out, B, H, WC, s);
+    case 64: return expand_tc<64>(x, ue, sr, si, out, B, H, WC, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // bf16: the tensor-core kernel; float32: the CUDA-core kernel, exact f32.
 cudaError_t launch_contract_bf16(int K, const void* x, const void* vr_t, const void* vi_t,
                                  void* tr, void* ti, int B, int H, int WC, cudaStream_t s) {
@@ -421,22 +558,21 @@ cudaError_t launch_contract_f32(int K, const void* x, const void* vr_t, const vo
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_expand(int K, const void* x, const void* ur, const void* ui,
-                          const void* sr, const void* si, void* out, int B, int H,
-                          int WC, cudaStream_t s) {
+cudaError_t launch_expand_f32(int K, const void* x, const void* ur, const void* ui,
+                              const void* sr, const void* si, void* out, int B, int H, int WC,
+                              cudaStream_t s) {
   const dim3 grid((WC + kThreads - 1) / kThreads, B);
-  const T* xp = static_cast<const T*>(x);
+  const float* xp = static_cast<const float*>(x);
   const float* a = static_cast<const float*>(ur);
   const float* c = static_cast<const float*>(ui);
   const float* p = static_cast<const float*>(sr);
   const float* q = static_cast<const float*>(si);
-  T* o = static_cast<T*>(out);
+  float* o = static_cast<float*>(out);
   switch (K) {
-    case 16: expand_kernel<T, 16><<<grid, kThreads, 0, s>>>(xp, a, c, p, q, o, H, WC); break;
-    case 32: expand_kernel<T, 32><<<grid, kThreads, 0, s>>>(xp, a, c, p, q, o, H, WC); break;
-    case 48: expand_kernel<T, 48><<<grid, kThreads, 0, s>>>(xp, a, c, p, q, o, H, WC); break;
-    case 64: expand_kernel<T, 64><<<grid, kThreads, 0, s>>>(xp, a, c, p, q, o, H, WC); break;
+    case 16: expand_kernel<16><<<grid, kThreads, 0, s>>>(xp, a, c, p, q, o, H, WC); break;
+    case 32: expand_kernel<32><<<grid, kThreads, 0, s>>>(xp, a, c, p, q, o, H, WC); break;
+    case 48: expand_kernel<48><<<grid, kThreads, 0, s>>>(xp, a, c, p, q, o, H, WC); break;
+    case 64: expand_kernel<64><<<grid, kThreads, 0, s>>>(xp, a, c, p, q, o, H, WC); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -454,11 +590,13 @@ extern "C" int eelunet_highpass_contract(int dtype, int K, const void* x, const 
   return cudaErrorInvalidValue;
 }
 
+// ue: the stacked, split U_H of tc_bf16.cuh, read by the bf16 kernel only.
 extern "C" int eelunet_highpass_expand(int dtype, int K, const void* x, const void* ur,
-                                       const void* ui, const void* sr, const void* si,
-                                       void* out, int B, int H, int WC, void* stream) {
+                                       const void* ui, const void* ue, const void* sr,
+                                       const void* si, void* out, int B, int H, int WC,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_expand<float>(K, x, ur, ui, sr, si, out, B, H, WC, s);
-  if (dtype == 1) return launch_expand<__nv_bfloat16>(K, x, ur, ui, sr, si, out, B, H, WC, s);
+  if (dtype == 0) return launch_expand_f32(K, x, ur, ui, sr, si, out, B, H, WC, s);
+  if (dtype == 1) return launch_expand_bf16(K, x, ue, sr, si, out, B, H, WC, s);
   return cudaErrorInvalidValue;
 }

@@ -1,13 +1,14 @@
 // FFT high-pass backward kernel pair for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the Pallas TPU kernels of eelunet_tpu/ops/fft_pallas.py:
-//   bwd_contract_kernel <- _bwd_contract_kernel (:390)
+//   bwd_contract_kernel_tc (bf16) and bwd_contract_kernel (f32)
+//                       <- _bwd_contract_kernel (:390)
 //   bwd_expand_kernel_tc (bf16) and bwd_expand_kernel (f32)
 //                       <- _bwd_expand_kernel   (:427)
 // both launched there by _bwd_core (:453). With x and the cotangent g viewed
 // as (B, H, W*C) and S the saved skinny spectrum of the forward:
 //   contract:  z = x - U_H S (complex, rebuilt per column from S);
-//              u = g z / |z|, 0 where |z|^2 < 1e-24 (the forward's clamp);
+//              u = g z/|z|, 0 where |z|^2 < 1e-24 (the forward's clamp);
 //              writes Re u in the model type and T = U_H^T conj(u),
 //              (B, K, W*C) f32, accumulated from the unrounded f32 u.
 //   expand:    dx = f32(Re u) - Re(V_H^T R), rounded to the model type, where
@@ -17,6 +18,34 @@
 // (the semantics of _bwd_core, not of _highpass_bwd_impl, which casts U_H to
 // the model type). Any H and any W*C are taken (ragged tiles are masked), so
 // there is no shape fallback.
+//
+// The contract in a bf16 model, bwd_contract_kernel_tc. What bounds it on
+// an H100: at (8,512,512,64) with K = 48 it reads x, g and S and writes
+// Re u and T (1.01 GB, 0.301 ms at 3.35 TB/s), with 8K FMAs per element
+// (rebuild and T), 1.54 ms on CUDA cores in f32. On the tensor cores its f32
+// products are split into bf16 pieces (tc_bf16.cuh), and the arithmetic is
+// set by T's bound, 1e-4 of max|T|: near pixels where |z| is small,
+// u = g z/|z| turns with z's error, and T sums those turns. A bf16x3 rebuild
+// of z (2^-16) moves T by 2e-4 of max|T| at (2,256,256,8) (CPU emulation,
+// tests/test_torch_port_highpass_split.py), over the bound; so z is rebuilt
+// in bf16x6 (three pieces, six products) and T, whose own error does not
+// turn, is summed in bf16x3. The tensor cores also truncate where they add
+// into their f32 accumulator, about one unit in the last place per mma, and
+// a pixel's rebuild chains 36 of them: each k16 step's products are summed
+// from zero and added into the totals with an f32 add rounded to nearest
+// (T moved from 8.4e-5 to 1.8e-5 of max|T| at (8,256,256,128)). The
+// arithmetic's floor at the bf16 peak is 0.469 ms at the 512 site, above
+// the bytes. Design: below (kernel 3 on tensor cores).
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase
+// 3b): 1.886 ms at (8,512,512,64), 16% of its bound and 25% of its floor,
+// and 0.972 ms at (8,256,256,128), against 5.24 and 2.66 ms for the
+// CUDA-core version; T within 5.7e-6 and 1.8e-5 of max|T|. ptxas: 245
+// registers at K = 48, no spills; 255 and a 16-byte spill at K = 64.
+// In float32 the contract stays on CUDA cores (bwd_contract_kernel): one
+// thread owns one column and walks the whole of H, T's 2K accumulators in
+// registers, the block's S columns in dynamic shared memory as float4s laid
+// out [k/4][thread], the U_H rows staged 32 at a time and read as float4
+// broadcasts; 168 registers at K = 48 (3 blocks per SM), 254 at K = 64.
 //
 // The expand in a bf16 model, bwd_expand_kernel_tc. What bounds it on an
 // H100: at (8,512,512,64) with K = 48 it reads R and u and writes dx (0.64
@@ -39,30 +68,17 @@
 // TF32 keeps 10 mantissa bits; both operands are rounded to nearest even
 // (to_tf32), so dx is off by a few 1e-4 of |Re u|: relative L2 2.5e-4 at
 // the 512 site, inside the 1e-2 the card holds bf16 dx to. Where the mask
-// keeps the whole spectrum (2m >= H and W) the exact dx is 0 and this
-// error is all there is (tests/test_torch_port_highpass_tc.py).
+// keeps the whole spectrum (2m >= H and W) the exact z is 0 and dx is set
+// by the f32 summation order of z's rebuild: reversing it moves dx by 1.35
+// in relative L2 at (2,32,32,16) (tests/test_torch_port_highpass_tc.py). No
+// kernel reproduces the reference's dx there; it is held relative to |Re u|.
 // Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase
-// 3b): 0.341 ms at (8,512,512,64), 56% of its bound, and 0.190 ms at
+// 3b): 0.340 ms at (8,512,512,64), 56% of its bound, and 0.192 ms at
 // (8,256,256,128), against 1.48 and 0.76 ms for the CUDA-core version it
-// replaces and 0.465 and 0.238 ms for a bf16 torch.baddbmm (0.975 and
-// 0.490 ms for an f32 one in TF32).
+// replaces and 0.468 and 0.242 ms for a bf16 torch.baddbmm (0.982 and
+// 0.492 ms for an f32 one in TF32).
 // In float32 the expand stays on CUDA cores (bwd_expand_kernel): 1e-5 of
 // relative L2 is below what TF32 gives.
-//
-// The contract stays on CUDA cores in f32 (its design from the first
-// version): one thread owns one column and walks the whole of H, so T's
-// sum over H stays in one thread; the U_H rows are staged in shared memory
-// 32 rows at a time and read as float4 broadcasts. It needs the column's S
-// (2K values) to rebuild z and the 2K accumulators of T at once: 192
-// values at K = 48, against 255 registers a thread. T stays in registers;
-// the block's S columns go to dynamic shared memory as float4s laid out
-// [k/4][thread], conflict-free (48 KB at K = 48, 64 KB at K = 64, plus the
-// staged rows). Unrolled by 2 and compiled for 3 blocks per SM it takes
-// 168 registers at K = 48 and spills nothing; a full unroll hoisted every
-// load of S and U and spilled. What bounds it is shared memory: per row a
-// warp reads its S (96 wavefronts) and the U row twice as float4
-// broadcasts, about 290 cycles against 96 cycles of FMAs (5.24 ms at the
-// 512 site against a 0.301 ms bound).
 //
 // Interface: plain C functions, loaded with ctypes. Each launches on the
 // stream it is given and returns cudaGetLastError() (0 on success).
@@ -72,18 +88,13 @@
 
 #include <cstdint>
 
-#include "async_copy.cuh"
+#include "tc_bf16.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;  // columns per block
 constexpr int kRows = 32;      // factor rows staged in shared memory per step
 constexpr float kEps = 1e-24f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // Stage rows [h0, h0 + rows) of two (H, K) row-major f32 matrices into shared
 // memory: row r holds a[h0 + r, 0:K] then b[h0 + r, 0:K].
@@ -112,14 +123,14 @@ constexpr int contract_smem_bytes() {
 template <int K>
 constexpr int kContractBlocks = K <= 48 ? 3 : 2;
 
-// grid (ceil(WC / kThreads), B); x, g, u_re (B, H, WC) in T; ur, ui (H, K)
-// f32; sr, si (B, K, WC) f32; tr, ti (B, K, WC) f32.
-template <typename T, int K>
+// grid (ceil(WC / kThreads), B); x, g, u_re (B, H, WC), ur, ui (H, K),
+// sr, si and tr, ti (B, K, WC), all f32.
+template <int K>
 __global__ void __launch_bounds__(kThreads, kContractBlocks<K>)
-bwd_contract_kernel(const T* __restrict__ x, const T* __restrict__ g,
+bwd_contract_kernel(const float* __restrict__ x, const float* __restrict__ g,
                     const float* __restrict__ ur, const float* __restrict__ ui,
                     const float* __restrict__ sr, const float* __restrict__ si,
-                    T* __restrict__ u_re, float* __restrict__ tr, float* __restrict__ ti,
+                    float* __restrict__ u_re, float* __restrict__ tr, float* __restrict__ ti,
                     int H, int WC) {
   extern __shared__ float4 smem[];
   float4 (*su)[K / 2] = reinterpret_cast<float4 (*)[K / 2]>(smem);  // U rows: U_r then U_i
@@ -185,13 +196,13 @@ bwd_contract_kernel(const T* __restrict__ x, const T* __restrict__ g,
           ir = fmaf(c.w, sv.w, ir);
         }
         const size_t at = base + static_cast<size_t>(h0 + r) * WC + j;
-        const float zr = to_f32(x[at]) - (rr - ii);
+        const float zr = x[at] - (rr - ii);
         const float zi = -(ri + ir);
         const float sq = zr * zr + zi * zi;
-        const float coef = sq >= kEps ? to_f32(g[at]) / sqrtf(fmaxf(sq, kEps)) : 0.f;
+        const float coef = sq >= kEps ? g[at] / sqrtf(fmaxf(sq, kEps)) : 0.f;
         const float vr = coef * zr;
         const float vi = coef * zi;
-        store(u_re + at, vr);
+        u_re[at] = vr;
         // T_r += U_r ur + U_i ui ; T_i += U_i ur - U_r ui  (U_H^T conj(u))
 #pragma unroll
         for (int q = 0; q < K / 4; ++q) {
@@ -268,36 +279,258 @@ bwd_expand_kernel(const float* __restrict__ vr_t, const float* __restrict__ vi_t
   }
 }
 
-template <typename T, int K>
-cudaError_t contract_k(const void* x, const void* g, const void* ur, const void* ui,
-                       const void* sr, const void* si, void* u, void* tr, void* ti, int B,
-                       int H, int WC, cudaStream_t s) {
+template <int K>
+cudaError_t contract_f32(const void* x, const void* g, const void* ur, const void* ui,
+                         const void* sr, const void* si, void* u, void* tr, void* ti, int B,
+                         int H, int WC, cudaStream_t s) {
   constexpr int smem = contract_smem_bytes<K>();
   static bool configured = false;  // the attribute is set once per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        bwd_contract_kernel<T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        bwd_contract_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const dim3 grid((WC + kThreads - 1) / kThreads, B);
-  bwd_contract_kernel<T, K><<<grid, kThreads, smem, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const float*>(ur),
+  bwd_contract_kernel<K><<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g), static_cast<const float*>(ur),
       static_cast<const float*>(ui), static_cast<const float*>(sr),
-      static_cast<const float*>(si), static_cast<T*>(u), static_cast<float*>(tr),
+      static_cast<const float*>(si), static_cast<float*>(u), static_cast<float*>(tr),
       static_cast<float*>(ti), H, WC);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_contract(int K, const void* x, const void* g, const void* ur,
-                            const void* ui, const void* sr, const void* si, void* u,
-                            void* tr, void* ti, int B, int H, int WC, cudaStream_t s) {
+cudaError_t launch_contract_f32(int K, const void* x, const void* g, const void* ur,
+                                const void* ui, const void* sr, const void* si, void* u,
+                                void* tr, void* ti, int B, int H, int WC, cudaStream_t s) {
   switch (K) {
-    case 16: return contract_k<T, 16>(x, g, ur, ui, sr, si, u, tr, ti, B, H, WC, s);
-    case 32: return contract_k<T, 32>(x, g, ur, ui, sr, si, u, tr, ti, B, H, WC, s);
-    case 48: return contract_k<T, 48>(x, g, ur, ui, sr, si, u, tr, ti, B, H, WC, s);
-    case 64: return contract_k<T, 64>(x, g, ur, ui, sr, si, u, tr, ti, B, H, WC, s);
+    case 16: return contract_f32<16>(x, g, ur, ui, sr, si, u, tr, ti, B, H, WC, s);
+    case 32: return contract_f32<32>(x, g, ur, ui, sr, si, u, tr, ti, B, H, WC, s);
+    case 48: return contract_f32<48>(x, g, ur, ui, sr, si, u, tr, ti, B, H, WC, s);
+    case 64: return contract_f32<64>(x, g, ur, ui, sr, si, u, tr, ti, B, H, WC, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------------------ kernel 3 on tensor cores (bf16x6 and bf16x3)
+//
+// Per image, one block owns a strip of kBcCols columns and sums the whole
+// of H itself (no atomics, no second pass: deterministic). Per chunk of
+// kBcRows rows of H, staged by cp.async (Ue rows, x and g tiles) through a
+// 2-slot ring, and per m16 tile (8 rows of H):
+//   1. lr, li = Ue [S_r; S_i] on the tensor cores in bf16x6 (rebuild in
+//      tc_bf16.cuh), S split into three pieces in registers for all of H;
+//   2. z = (x - lr, -li), u = g z/|z| (0 below the floor) in the
+//      accumulators; Re u overwrites x in the slot;
+//   3. u_r, u_i split into bf16 hi and lo; a movmatrix transposes each
+//      accumulator 8x8 (rows of H x columns) into the B fragment of the
+//      next product, whose k16 step is the m16 tile's 8 rows of u_r, then
+//      its 8 rows of u_i: no shared memory, no shuffle;
+//   4. T' += Ue^T u, M = 2K, in bf16x3, A fragments from the same staged
+//      Ue (pieces 0 and 1) by ldmatrix.trans. Ue's rows are [U_r | -U_i]
+//      and [U_i | U_r], so T' = [T_r; -T_i]: T_i's sign flips on the way out.
+// Warp w owns 16 columns; its S fragments (3K / 2 registers) and T'
+// accumulators (K) live for the whole of H: 120 registers at K = 48 before
+// the rebuild's, so it is compiled for 2 blocks of 4 warps per SM (up to
+// 255 registers), and one m16 tile of the rebuild is live at a time (two
+// spilled at K = 48 and were slower).
+constexpr int kBcThreads = 128;       // 4 warps
+constexpr int kBcCols = 64;           // columns per block: 16 per warp
+constexpr int kBcXPitch = kBcCols + 8;  // bf16 per staged x or g row: 36 words, = 4 mod 32
+// Rows of H per chunk: 4 m16 tiles; 2 at K = 64, so that two blocks' rings
+// fit an SM (94 KB a block at K = 48, 59 KB at K = 64).
+template <int K>
+constexpr int kBcRows = K <= 48 ? 32 : 16;
+template <int K>
+constexpr int kBcSlot = 2 * kBcRows<K> * kUePitch<K, 3> + 2 * kBcRows<K> * kBcXPitch;  // bf16
+template <int K>
+constexpr int kBcSmemBytes = 2 * kBcSlot<K> * 2;
+
+template <int K>
+__device__ __forceinline__ void bwd_contract_fill(__nv_bfloat16* slot,
+                                                  const __nv_bfloat16* __restrict__ ue,
+                                                  const __nv_bfloat16* __restrict__ xb,
+                                                  const __nv_bfloat16* __restrict__ gb, int c,
+                                                  int j0, int H, int WC, bool vec) {
+  constexpr int kRows = kBcRows<K>;
+  load_ue<K, 3, kRows / 8, kBcThreads>(slot, ue, c * kRows / 8, (H + 7) / 8);
+  __nv_bfloat16* xs = slot + 2 * kRows * kUePitch<K, 3>;
+  load_tile<kRows, kBcCols, kBcXPitch, kBcThreads>(xs, xb, c * kRows, j0, H, WC, vec);
+  load_tile<kRows, kBcCols, kBcXPitch, kBcThreads>(xs + kRows * kBcXPitch, gb, c * kRows, j0, H,
+                                                   WC, vec);
+}
+
+// grid (ceil(WC / kBcCols), B), kBcThreads threads, kBcSmemBytes<K> of
+// dynamic shared memory; x, g, u_re (B, H, WC) bf16; ue (16 ceil(H/8), 6K)
+// bf16; sr, si, tr, ti (B, K, WC) f32. vec: x's, g's and u_re's rows are
+// 16-byte aligned.
+template <int K>
+__global__ void __launch_bounds__(kBcThreads, 2)
+bwd_contract_kernel_tc(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+                       const __nv_bfloat16* __restrict__ ue, const float* __restrict__ sr,
+                       const float* __restrict__ si, __nv_bfloat16* __restrict__ u_re,
+                       float* __restrict__ tr, float* __restrict__ ti, int H, int WC, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  constexpr int kTM = 2 * K / 16;  // m16 tiles of T'
+  constexpr int kRows = kBcRows<K>;
+  constexpr int kPitch = kUePitch<K, 3>;
+  const int lane = threadIdx.x & 31;
+  const int gq = lane >> 2;
+  const int t4 = lane & 3;
+  const int q = lane >> 3;
+  const int r8 = lane & 7;
+  const int wcol = (threadIdx.x >> 5) * 16;  // the warp's 16 columns of the strip
+  const int j0 = blockIdx.x * kBcCols;
+  const int b = blockIdx.y;
+  const size_t base = static_cast<size_t>(b) * H * WC;
+  const int n_chunks = (H + kRows - 1) / kRows;
+
+  bwd_contract_fill<K>(ring, ue, x + base, g + base, 0, j0, H, WC, vec);
+  cp_async_commit();
+  unsigned sf[3][2 * K / 16][2][2];  // S in three pieces
+  load_s_frags<K, 3>(sf, sr, si, b, j0 + wcol, WC);
+  float tacc[kTM][2][4];
+#pragma unroll
+  for (int tm = 0; tm < kTM; ++tm)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tacc[tm][nt][e] = 0.f;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    __nv_bfloat16* slot = ring + (c & 1) * kBcSlot<K>;
+    if (c + 1 < n_chunks)
+      bwd_contract_fill<K>(ring + ((c + 1) & 1) * kBcSlot<K>, ue, x + base, g + base, c + 1,
+                           j0, H, WC, vec);
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk c has landed (this thread's pieces)
+    __syncthreads();     // everyone's
+    const __nv_bfloat16* us = slot;
+    __nv_bfloat16* xs = slot + 2 * kRows * kPitch;
+    const __nv_bfloat16* gs = xs + kRows * kBcXPitch;
+#pragma unroll 1
+    for (int mt = 0; mt < kRows / 8; ++mt) {
+      float acc[1][2][4] = {};
+      rebuild<K, 3, 1, true>(acc, us, mt, sf);
+      // u at this lane's pixels (row 8 mt + gq, columns 8 nt + 2 t4 and + 1
+      // of the warp's), then the B fragments of T' += Ue^T u: uh/ul[nt][0]
+      // rows of u_r, [1] rows of u_i, hi and lo.
+      unsigned uh[2][2], ul[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int at = (mt * 8 + gq) * kBcXPitch + wcol + nt * 8 + t4 * 2;
+        unsigned* xp = reinterpret_cast<unsigned*>(xs + at);
+        const unsigned xw = *xp;
+        const unsigned gw = *reinterpret_cast<const unsigned*>(gs + at);
+        const float xv[2] = {__uint_as_float(xw << 16), __uint_as_float(xw & 0xffff0000u)};
+        const float gv[2] = {__uint_as_float(gw << 16), __uint_as_float(gw & 0xffff0000u)};
+        float vr[2], vi[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float zr = xv[e] - acc[0][nt][e];
+          const float zi = -acc[0][nt][2 + e];
+          const float sq = zr * zr + zi * zi;
+          const float coef = sq >= kEps ? gv[e] / sqrtf(fmaxf(sq, kEps)) : 0.f;
+          vr[e] = coef * zr;
+          vi[e] = coef * zi;
+        }
+        *xp = bf16x2_bits(__floats2bfloat162_rn(vr[0], vr[1]));
+        unsigned p[2];
+        split_pair<2>(vr[0], vr[1], p);
+        uh[nt][0] = movmatrix_trans(p[0]);
+        ul[nt][0] = movmatrix_trans(p[1]);
+        split_pair<2>(vi[0], vi[1], p);
+        uh[nt][1] = movmatrix_trans(p[0]);
+        ul[nt][1] = movmatrix_trans(p[1]);
+      }
+#pragma unroll
+      for (int tm = 0; tm < kTM; ++tm) {
+        // A fragment of Ue^T (rows k' = 16 tm.., depth the tile's 16 Ue rows)
+        // from the staged Ue, transposed: matrices (e 0-7, k' 0-7),
+        // (e 0-7, k' 8-15), (e 8-15, k' 0-7), (e 8-15, k' 8-15).
+        unsigned ah[4], al[4];
+        const __nv_bfloat16* p =
+            us + (16 * mt + r8 + (q >> 1) * 8) * kPitch + 16 * tm + (q & 1) * 8;
+        ldmatrix_x4_trans(ah, p);
+        ldmatrix_x4_trans(al, p + 2 * K);
+        // This k16 step's three products, smallest first, into a zeroed
+        // accumulator; then an f32 add rounded to nearest into T' (see
+        // rebuild in tc_bf16.cuh): T' sums all of H.
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(d, al, uh[nt][0], uh[nt][1]);
+          mma_bf16(d, ah, ul[nt][0], ul[nt][1]);
+          mma_bf16(d, ah, uh[nt][0], uh[nt][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tacc[tm][nt][e] += d[e];
+        }
+      }
+    }
+    __syncthreads();
+    store_tile<kRows, kBcCols, kBcXPitch, kBcThreads>(u_re + base, xs, c * kRows, j0, H, WC,
+                                                      vec);
+    __syncthreads();  // every warp is done with this slot before chunk c + 2 refills it
+  }
+  // T' rows k' = 16 tm + gq (+ 8): T_r for k' < K, -T_i for the rest. Each
+  // quad holds 8 consecutive columns of a row: float2 stores.
+  const bool even = (WC & 1) == 0;
+#pragma unroll
+  for (int tm = 0; tm < kTM; ++tm)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int j = j0 + wcol + nt * 8 + t4 * 2;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int kk = tm * 16 + gq + hh * 8;
+        const float sgn = kk < K ? 1.f : -1.f;
+        float* p = (kk < K ? tr + (static_cast<size_t>(b) * K + kk) * WC
+                           : ti + (static_cast<size_t>(b) * K + kk - K) * WC) + j;
+        const float v0 = sgn * tacc[tm][nt][2 * hh];
+        const float v1 = sgn * tacc[tm][nt][2 * hh + 1];
+        if (even && j + 1 < WC) {
+          *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+        } else {
+          if (j < WC) p[0] = v0;
+          if (j + 1 < WC) p[1] = v1;
+        }
+      }
+    }
+}
+
+template <int K>
+cudaError_t contract_tc(const void* x, const void* g, const void* ue, const void* sr,
+                        const void* si, void* u, void* tr, void* ti, int B, int H, int WC,
+                        cudaStream_t s) {
+  constexpr int smem = kBcSmemBytes<K>;
+  static bool configured = false;  // the attribute is set once per instantiation
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bwd_contract_kernel_tc<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  const bool vec =
+      WC % 8 == 0 && addr(x) % 16 == 0 && addr(g) % 16 == 0 && addr(u) % 16 == 0;
+  const dim3 grid((WC + kBcCols - 1) / kBcCols, B);
+  bwd_contract_kernel_tc<K><<<grid, kBcThreads, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
+      static_cast<const __nv_bfloat16*>(ue), static_cast<const float*>(sr),
+      static_cast<const float*>(si), static_cast<__nv_bfloat16*>(u), static_cast<float*>(tr),
+      static_cast<float*>(ti), H, WC, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_contract_bf16(int K, const void* x, const void* g, const void* ue,
+                                 const void* sr, const void* si, void* u, void* tr, void* ti,
+                                 int B, int H, int WC, cudaStream_t s) {
+  switch (K) {
+    case 16: return contract_tc<16>(x, g, ue, sr, si, u, tr, ti, B, H, WC, s);
+    case 32: return contract_tc<32>(x, g, ue, sr, si, u, tr, ti, B, H, WC, s);
+    case 48: return contract_tc<48>(x, g, ue, sr, si, u, tr, ti, B, H, WC, s);
+    case 64: return contract_tc<64>(x, g, ue, sr, si, u, tr, ti, B, H, WC, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -566,15 +799,16 @@ cudaError_t launch_expand_f32(int K, const void* vr_t, const void* vi_t, const v
 }  // namespace
 
 // dtype code: 0 = float32, 1 = bfloat16, the type of x, g, u_re and dx.
+// ue: the stacked, split U_H of tc_bf16.cuh, read by the bf16 kernel only.
 extern "C" int eelunet_highpass_bwd_contract(int dtype, int K, const void* x, const void* g,
-                                             const void* ur, const void* ui, const void* sr,
-                                             const void* si, void* u_re, void* tr, void* ti,
-                                             int B, int H, int WC, void* stream) {
+                                             const void* ur, const void* ui, const void* ue,
+                                             const void* sr, const void* si, void* u_re,
+                                             void* tr, void* ti, int B, int H, int WC,
+                                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_contract<float>(K, x, g, ur, ui, sr, si, u_re, tr, ti, B, H, WC, s);
-  if (dtype == 1)
-    return launch_contract<__nv_bfloat16>(K, x, g, ur, ui, sr, si, u_re, tr, ti, B, H, WC, s);
+    return launch_contract_f32(K, x, g, ur, ui, sr, si, u_re, tr, ti, B, H, WC, s);
+  if (dtype == 1) return launch_contract_bf16(K, x, g, ue, sr, si, u_re, tr, ti, B, H, WC, s);
   return cudaErrorInvalidValue;
 }
 

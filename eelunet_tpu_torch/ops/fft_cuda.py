@@ -1,38 +1,50 @@
 """FFT high-pass through the hand-written CUDA kernels
-(counterpart of ``eelunet_tpu/ops/fft_pallas.py``).
+(counterpart of ``eelunet_tpu/ops/fft_pallas.py``). In a bf16 model all four
+run on the tensor cores (``mma.sync``, f32 sums); in float32 they keep exact
+f32 arithmetic on CUDA cores. Times: NVIDIA H100 80GB HBM3 at 700 W,
+``chip_smoke.py`` phases 3 and 3b.
 
 Forward (``csrc/highpass.cu``):
 
-  kernel 1, ``highpass_contract``: T = V_H x per image, as (B, K, W*C) f32
-      real and imaginary parts — one read of x, a skinny write. In bf16 it
-      runs on the tensor cores (``contract_kernel_tc``: mma.sync bf16 with
-      f32 sums, x and the stacked [V_r^T | V_i^T] through a cp.async ring;
-      bound by bytes, 0.32 ms at (16,512,512,64) on an NVIDIA H100 80GB
-      HBM3 at 700 W); in f32 on CUDA cores, exact f32 products.
+  kernel 1, ``highpass_contract`` (TPU ``_contract_kernel``): T = V_H x per
+      image, as (B, K, W*C) f32 real and imaginary parts — one read of x, a
+      skinny write. bf16: ``contract_kernel_tc``, bf16 operands, x and the
+      stacked [V_r^T | V_i^T] through a cp.async ring; bound by bytes,
+      0.35 ms at (16,512,512,64).
   middle: contract and expand the W axis on the skinny T — four einsums in
       float32 per complex product (``fft_pallas.py:273-285``), K rows only.
-  kernel 2, ``highpass_expand``: out = |x - U_H S|, the low-pass rows rebuilt
-      per column in registers and fused with the residual and the clamped
-      magnitude — one read of x and S, one write. CUDA cores, f32.
+  kernel 2, ``highpass_expand`` (TPU ``_expand_kernel``): out = |x - U_H S|,
+      the low-pass rows rebuilt per column and fused with the residual and
+      the clamped magnitude — one read of x and S, one write. bf16:
+      ``expand_kernel_tc`` in bf16x3 (U_H and S split into two bf16 pieces,
+      three products; one pass of TF32 misses the bound where the mask keeps
+      the whole spectrum); 1.12 ms at (16,512,512,64) against a 0.38 ms
+      bound from bytes.
 
 Backward (``csrc/highpass_bwd.cu``), the analytic adjoint on the saved S
 (``fft_pallas.py:324-386, 453-527``):
 
-  kernel 3, ``highpass_bwd_contract``: z = x - U_H S rebuilt per column,
-      u = g z/|z| (0 under the clamp), Re u written in x's type and
-      T = U_H^T conj(u) accumulated in f32. g has x's type, as autograd
-      gives it. CUDA cores, f32.
+  kernel 3, ``highpass_bwd_contract`` (TPU ``_bwd_contract_kernel``):
+      z = x - U_H S rebuilt per column, u = g z/|z| (0 under the clamp),
+      Re u written in x's type and T = U_H^T conj(u) accumulated in f32. g
+      has x's type, as autograd gives it. bf16: ``bwd_contract_kernel_tc``,
+      z rebuilt in bf16x6 (three pieces, six products: a bf16x3 rebuild
+      turns u enough to move T past its 1e-4 bound) and T in bf16x3, each
+      k-step's products added into the totals rounded to nearest; 1.89 ms
+      at (8,512,512,64) against a 0.30 ms bound from bytes and a 0.47 ms
+      floor of its products.
   middle: the forward middle in reverse (``fft_pallas.py:496-509``):
       ``w_axis_middle`` with U_W^T and V_W^T in the places of V_W and U_W.
-  kernel 4, ``highpass_bwd_expand``: dx = Re u - Re(V_H^T R) in x's type. In
-      bf16 it runs on the tensor cores (``bwd_expand_kernel_tc``: dx = u - A R
-      with A = [V_r^T | -V_i^T] and R rounded to TF32, f32 sums; bound by
-      bytes, 0.34 ms at (8,512,512,64) on the same card); in f32 on CUDA
-      cores, since TF32 would miss f32's 1e-5.
+  kernel 4, ``highpass_bwd_expand`` (TPU ``_bwd_expand_kernel``):
+      dx = Re u - Re(V_H^T R) in x's type. bf16: ``bwd_expand_kernel_tc``,
+      dx = u - A R with A = [V_r^T | -V_i^T] and R rounded to TF32; bound by
+      bytes, 0.34 ms at (8,512,512,64).
 
-The tensor-core kernels read the stacked operands through the two (H, K)
-halves the wrappers are given, so no stacked copy is made or cached; the
-factor halves must be 16-byte aligned (fresh ``factor_tensors`` are).
+Kernels 1 and 4 read their stacked operands through the two (H, K) halves
+the wrappers are given (16-byte aligned; fresh ``factor_tensors`` are).
+Kernels 2 and 3 read U_H split and stacked, ``uh_stacked``: made with the
+factors and cached per pair of U_H tensors; S's and u's pieces are made in
+the kernels' registers.
 
 ``HighPassFunction`` ties the four together for autograd, saving (x, S_r,
 S_i) as the JAX VJP does (``fft_pallas.py:664-671``).
@@ -45,6 +57,7 @@ CUDA tensor never takes the plain twin.
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from functools import lru_cache
 from typing import Dict, Tuple
 
@@ -105,8 +118,66 @@ def factor_tensors(h: int, w: int, mask_range: int, dtype: torch.dtype,
     def t(a, dt=torch.float32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dt)
 
-    return (t(vhr.T, dtype), t(vhi.T, dtype), t(uhr), t(uhi),
-            t(uwr), t(uwi), t(vwr), t(vwi))
+    out = (t(vhr.T, dtype), t(vhi.T, dtype), t(uhr), t(uhi),
+           t(uwr), t(uwi), t(vwr), t(vwi))
+    uh_stacked(out[2], out[3])  # kernels 2 and 3 read U_H split and stacked
+    return out
+
+
+def bf16_split(a: torch.Tensor, pieces: int = 2):
+    """f32 -> ``pieces`` bf16 tensors, each rounded to nearest even from what
+    the earlier ones left: p0 = bf16(a), p1 = bf16(a - p0), ...; a piece is
+    0 where p0 is infinite or NaN (those pass through p0). Two pieces sum
+    to within 2^-16 of a, three hold all of f32's bits
+    (``csrc/tc_bf16.cuh``)."""
+    rest = a.float()
+    finite = None
+    out = []
+    for _ in range(pieces):
+        p = rest.bfloat16()
+        if finite is None:
+            finite = torch.isfinite(p)
+        else:
+            p = torch.where(finite, p, torch.zeros((), dtype=p.dtype))
+        out.append(p)
+        rest = torch.where(finite, rest - p.float(), 0.0)
+    return tuple(out)
+
+
+def uh_split_stacked(ur: torch.Tensor, ui: torch.Tensor) -> torch.Tensor:
+    """U_H (H,K) f32 -> Ue (16 ceil(H/8), 6K) bf16, the operand kernels 2
+    and 3 read on the tensor cores: per 8 rows of H, 8 rows of
+    A_re = [U_r | -U_i] then 8 rows of A_im = [U_i | U_r], each row its three
+    bf16 pieces side by side (columns 2K p : 2K (p + 1) hold piece p); rows
+    past H are 0."""
+    h, k = ur.shape
+    groups = -(-h // 8)
+    pad = (0, 0, 0, 8 * groups - h)
+    a_re = torch.nn.functional.pad(torch.cat([ur, -ui], 1), pad).view(groups, 8, 2 * k)
+    a_im = torch.nn.functional.pad(torch.cat([ui, ur], 1), pad).view(groups, 8, 2 * k)
+    rows = torch.cat([a_re, a_im], 1).view(16 * groups, 2 * k)
+    return torch.cat(bf16_split(rows, 3), 1).contiguous()
+
+
+# Ue per U_H pair, made once: keyed by the tensors' ids and versions, and
+# holding the tensors themselves, so an id is never reused while cached.
+_STACKED: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
+def _version(t: torch.Tensor) -> int:
+    # Tensors made under inference_mode keep no version counter.
+    return -1 if t.is_inference() else t._version
+
+
+def uh_stacked(ur: torch.Tensor, ui: torch.Tensor) -> torch.Tensor:
+    """``uh_split_stacked(ur, ui)``, cached for this pair of tensors."""
+    key = (id(ur), id(ui), _version(ur), _version(ui))
+    hit = _STACKED.get(key)
+    if hit is None:
+        hit = _STACKED[key] = (ur, ui, uh_split_stacked(ur, ui))
+        while len(_STACKED) > 64:
+            _STACKED.popitem(last=False)
+    return hit[2]
 
 
 # ------------------------------------------------------------- plain twins
@@ -182,11 +253,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "highpass": {
         "eelunet_highpass_contract": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "eelunet_highpass_expand": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "eelunet_highpass_expand": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "highpass_bwd": {
         "eelunet_highpass_bwd_contract":
-            [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+            [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "eelunet_highpass_bwd_expand": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
 }
@@ -203,6 +274,12 @@ def _lib(name: str):
             getattr(lib, fn).restype = _I
         lib._eelunet_typed = True
     return lib
+
+
+def _stacked_ptr(name: str, ur: torch.Tensor, ui: torch.Tensor, h: int, k: int) -> int:
+    """Ue of (ur, ui), which the bf16 kernels copy in 16-byte pieces."""
+    return _operand(name, uh_stacked(ur, ui), (16 * (-(-h // 8)), 6 * k), torch.bfloat16,
+                    ur.device, align=16)
 
 
 def _raise_on(name: str, err: int) -> None:
@@ -242,6 +319,7 @@ def highpass_expand(x3: torch.Tensor, ur: torch.Tensor, ui: torch.Tensor,
     code = _check("highpass_expand", x3, k)
     f32 = torch.float32
     ptrs = [_operand("highpass_expand", t, (h, k), f32, x3.device) for t in (ur, ui)]
+    ptrs.append(_stacked_ptr("highpass_expand", ur, ui, h, k))
     ptrs += [_operand("highpass_expand", t, (b, k, wc), f32, x3.device) for t in (sr, si)]
     out = torch.empty_like(x3)
     err = _lib("highpass").eelunet_highpass_expand(
@@ -268,6 +346,7 @@ def highpass_bwd_contract(x3: torch.Tensor, g3: torch.Tensor, ur: torch.Tensor,
     _check(name, g3, k)
     f32 = torch.float32
     ptrs = [_operand(name, t, (h, k), f32, x3.device) for t in (ur, ui)]
+    ptrs.append(_stacked_ptr(name, ur, ui, h, k))
     ptrs += [_operand(name, t, (b, k, wc), f32, x3.device) for t in (sr, si)]
     u_re = torch.empty_like(x3)
     tr = torch.empty((b, k, wc), dtype=f32, device=x3.device)

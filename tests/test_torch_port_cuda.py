@@ -106,8 +106,9 @@ def test_bwd_kernels_match_plain_twins(cuda, shape, mask_range, dtype, tol):
     assert _rel_l2(uk, up) <= tol and _rel_l2(dk, dp) <= tol
 
 
-# Tiles of the tensor-core kernels 1 (128 columns x 32 rows of H) and 4
-# (128 columns x 64 rows) left ragged: (B,H,W,C), mask_range -> K.
+# Tiles of the tensor-core kernels 1 (128 columns x 32 rows of H), 2 (128 x
+# 32), 3 (64 x 32; 16 rows at K = 64) and 4 (128 x 64) left ragged:
+# (B,H,W,C), mask_range -> K.
 # W*C odd (99, 225), even but not a multiple of 4 (150) or of 8 (132), a
 # multiple of 8 but not of 128 (408); H a multiple of none, of 32 but not
 # 64 (96); B = 1; K = 16, 32, 48, 64.
@@ -156,6 +157,41 @@ def test_tc_kernels_ragged_tiles(cuda, shape, mask_range, dtype, tol, misaligned
     assert tk[0].shape == (b, k, w * c) and dk.dtype == dtype and dk.shape == u3.shape
     assert _rel(tk[0], tp[0]) <= 1e-5 and _rel(tk[1], tp[1]) <= 1e-5
     assert _rel_l2(dk, dp) <= tol
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("dtype,tol,bwd_tol", [(torch.float32, 1e-4, 1e-5),
+                                               (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("shape,mask_range", TC_CASES)
+def test_tc_kernels_2_3_ragged_tiles(cuda, shape, mask_range, dtype, tol, bwd_tol, misaligned):
+    """Kernels 2 and 3 against their twins where their tiles do not fit
+    (kernel 2: 128 columns x 32 rows of H; kernel 3: 64 columns x 32 rows,
+    16 at K = 64), on the spectrum of x's own forward, at the bounds of
+    chip_smoke.py's phases 3 and 3b: out within ``tol`` of max|out| (TOL),
+    T within 1e-4 of max|T|, Re u within ``bwd_tol`` in relative L2
+    (BWD_TOL)."""
+    b, h, w, c = shape
+    x = _x(shape, dtype, cuda, seed=4)
+    g = _x(shape, dtype, cuda, seed=5)
+    with torch.inference_mode():
+        _, s_r, s_i = fft_cuda.highpass_fwd(x, mask_range)
+    x3, g3 = x.view(b, h, w * c), g.view(b, h, w * c)
+    if misaligned:
+        x3, g3, s_r, s_i = (_offset_copy(t) for t in (x3, g3, s_r, s_i))
+    _, _, uhr, uhi, *_ = fft_cuda.factor_tensors(h, w, mask_range, dtype, cuda)
+    fft_cuda.reset_launches()
+    with torch.inference_mode():
+        ok_ = fft_cuda.highpass_expand(x3, uhr, uhi, s_r, s_i)
+        uk, trk, tik = fft_cuda.highpass_bwd_contract(x3, g3, uhr, uhi, s_r, s_i)
+    torch.cuda.synchronize()
+    assert fft_cuda.LAUNCHES["highpass_expand"] == fft_cuda.LAUNCHES["highpass_bwd_contract"] == 1
+    op_ = fft_cuda.highpass_expand_plain(x3, uhr, uhi, s_r, s_i)
+    up, trp, tip = fft_cuda.highpass_bwd_contract_plain(x3, g3, uhr, uhi, s_r, s_i)
+    assert ok_.dtype == uk.dtype == dtype and ok_.shape == uk.shape == x3.shape
+    assert trk.shape == trp.shape and trk.dtype == torch.float32
+    assert _rel(ok_, op_) <= tol
+    assert _rel(trk, trp) <= 1e-4 and _rel(tik, tip) <= 1e-4
+    assert _rel_l2(uk, up) <= bwd_tol
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])

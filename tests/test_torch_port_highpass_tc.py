@@ -143,8 +143,11 @@ def test_kernel4_tf32_matches_jax(shape, m):
     x and g and the same saved spectrum; and TF32's own share, against
     kernel 4's f32 twin. In relative L2 within the card's bf16 bound, of dx,
     except where the mask keeps the whole spectrum (2m >= H and W, the first
-    shape): there the exact high-pass and its gradient are 0, JAX's dx is
-    f32 noise (|dx| ~ 5e-4 |Re u|), and the error is held relative to |Re u|
+    shape): there the exact high-pass and its gradient are 0, and JAX's dx
+    is set by the f32 summation order of z's rebuild. Reversing that order
+    moves dx by more than 100% in relative L2
+    (``test_whole_spectrum_dx_is_set_by_the_rebuild_order``), so no kernel
+    reproduces JAX's dx there, and the error is held relative to |Re u|
     (TF32 rounds A and R to 2^-11: a few 1e-4 of |Re u| at every shape, printed).
     Where Pallas cannot tile, ``_highpass_bwd_impl`` rounds U_H to bf16,
     which the kernels do not, so the error against JAX is larger there."""
@@ -173,3 +176,33 @@ def test_kernel4_tf32_matches_jax(shape, m):
     mm = min(m, h // 2, w // 2)
     if 2 * mm < h or 2 * mm < w:
         assert e_jax <= BWD_BF16 and e_tf32 <= BWD_BF16
+
+
+@pytest.mark.parametrize("shape,m,low,high", [((2, 32, 32, 16), 20, 0.5, None),
+                                              ((1, 64, 64, 8), 20, None, 1e-3)])
+def test_whole_spectrum_dx_is_set_by_the_rebuild_order(shape, m, low, high):
+    """The f32 twin chain (kernel 3's twin, the adjoint middle, kernel 4's
+    twin) against itself with the f32 sum over K of z's rebuild taken in
+    reverse order. Where the mask keeps the whole spectrum (2m >= H and W)
+    z = x - U_H S is f32 rounding noise, u = g z/|z| its direction, and dx
+    moves by more than 0.5 in relative L2; where 2m < H it moves by less
+    than 1e-3. So at a whole-spectrum site dx is the summation order's, not
+    the arithmetic's, and kernel 4 is held there relative to |Re u|."""
+    b, h, w, c = shape
+    x = torch.from_numpy(_rand(shape, 8)).bfloat16()
+    g = torch.from_numpy(_rand(shape, 9)).bfloat16()
+    _, s_r, s_i = fft_cuda.highpass_fwd(x, m)
+    vr_t, vi_t, uhr, uhi, uwr, uwi, vwr, vwi = fft_cuda.factor_tensors(
+        h, w, m, torch.float32, torch.device("cpu"))
+    x3, g3 = x.view(b, h, w * c), g.view(b, h, w * c)
+
+    def chain(flip: bool):
+        f = (lambda t: t.flip(1)) if flip else (lambda t: t)
+        u_re, tr, ti = fft_cuda.highpass_bwd_contract_plain(x3, g3, f(uhr), f(uhi), f(s_r),
+                                                            f(s_i))
+        r_r, r_i = fft_cuda.w_axis_middle(f(tr), f(ti), vwr.T, vwi.T, uwr.T, uwi.T, w, c)
+        return fft_cuda.highpass_bwd_expand_plain(u_re, vr_t, vi_t, r_r, r_i).float().numpy()
+
+    e = _rel_l2(chain(True), chain(False))
+    print(f"rebuild order reversed {shape}: dx moves by {e:.3e} in relative L2")
+    assert (low is None or e > low) and (high is None or e < high)

@@ -22,6 +22,7 @@ from eelunet_tpu.train.state import build_optimizer as jax_build_optimizer
 from eelunet_tpu_torch.config import LossConfig, ModelConfig, OptimizerConfig
 from eelunet_tpu_torch.inference import random_state_dict
 from eelunet_tpu_torch.models.convert import from_flax_variables, to_upstream_state_dict
+from eelunet_tpu_torch.ops import fft_cuda
 from eelunet_tpu_torch.registry import MODEL_REGISTRY, create_model
 from eelunet_tpu_torch.train.state import TrainState, build_optimizer
 from eelunet_tpu_torch.train.trainer import make_loss_fn, make_train_step
@@ -192,3 +193,77 @@ def bwd_expand_tf32_emulated(u_re, vr_t, vi_t, rr, ri):
     r = torch.cat([rr, ri], dim=1)
     adj = torch.einsum("hk,bkj->bhj", round_tf32(a), round_tf32(r))
     return (u_re.float() - adj).to(u_re.dtype)
+
+
+def ue_pieces(ue: torch.Tensor, h: int):
+    """Decode kernels 2 and 3's stacked operand Ue (``fft_cuda.uh_stacked``)
+    into the float32 bf16 pieces of A_re = [U_r | -U_i] and of
+    A_im = [U_i | U_r], each (H, 2K): ((re_0, re_1, re_2), (im_0, im_1, im_2))."""
+    k2 = ue.shape[1] // 3
+    grp = ue.float().view(-1, 2, 8, 3 * k2)
+    re = grp[:, 0].reshape(-1, 3 * k2)[:h]
+    im = grp[:, 1].reshape(-1, 3 * k2)[:h]
+    return tuple(tuple(a[:, p * k2:(p + 1) * k2] for p in range(3)) for a in (re, im))
+
+
+# The products of each split arithmetic, (piece of a, piece of b), as the
+# kernels take them (csrc/tc_bf16.cuh).
+BF16X3 = ((0, 0), (0, 1), (1, 0))
+BF16X6 = BF16X3 + ((0, 2), (2, 0), (1, 1))
+
+
+def _split_product(a, b, spec: str, terms):
+    """Sum of the chosen piece products, each exact in f32, summed in f32;
+    a and b are tuples of float32 pieces."""
+    return sum(torch.einsum(spec, a[i], b[j]) for i, j in terms)
+
+
+def _pieces(t: torch.Tensor, n: int):
+    return tuple(v.float() for v in fft_cuda.bf16_split(t, n))
+
+
+def _rebuild_split(ur, ui, sr, si, terms):
+    """(lr, li) = U_H S as kernels 2 (bf16x3) and 3 (bf16x6) take it on the
+    tensor cores: the stacked Ue against [S_r; S_i] split in registers."""
+    a_re, a_im = ue_pieces(fft_cuda.uh_stacked(ur, ui), ur.shape[0])
+    s = _pieces(torch.cat([sr, si], 1), 3)
+    return (_split_product(a_re, s, "hk,bkj->bhj", terms),
+            _split_product(a_im, s, "hk,bkj->bhj", terms))
+
+
+def expand_bf16x3_emulated(x3, ur, ui, sr, si):
+    """Kernel 2's arithmetic in a bf16 model (``expand_kernel_tc``): the
+    rebuild in bf16x3, then sqrt(max((x - lr)^2 + li^2, 1e-24)) in f32,
+    rounded to x's type."""
+    lr, li = _rebuild_split(ur, ui, sr, si, BF16X3)
+    zr = x3.float() - lr
+    return torch.sqrt(torch.clamp(zr * zr + li * li, min=1e-24)).to(x3.dtype)
+
+
+def expand_tf32_emulated(x3, ur, ui, sr, si):
+    """Kernel 2 in one pass of TF32 (A and S rounded to TF32, f32 sums): the
+    arithmetic the kernel does not take, kept to show why."""
+    a_re, a_im = (round_tf32(torch.cat(p, 1)) for p in ((ur, -ui), (ui, ur)))
+    s = round_tf32(torch.cat([sr, si], 1))
+    lr, li = (torch.einsum("hk,bkj->bhj", a, s) for a in (a_re, a_im))
+    zr = x3.float() - lr
+    return torch.sqrt(torch.clamp(zr * zr + li * li, min=1e-24)).to(x3.dtype)
+
+
+def bwd_contract_split_emulated(x3, g3, ur, ui, sr, si, rebuild_terms=BF16X6):
+    """Kernel 3's arithmetic in a bf16 model (``bwd_contract_kernel_tc``):
+    the rebuild in bf16x6 (``rebuild_terms``; bf16x3 to show why not);
+    u = g z/|z| (0 below the floor) in f32; Re u in x's type;
+    T' = Ue^T [u_r; u_i] in bf16x3 from u's two pieces, so T_r = T'[:K] and
+    T_i = -T'[K:]."""
+    lr, li = _rebuild_split(ur, ui, sr, si, rebuild_terms)
+    zr = x3.float() - lr
+    zi = -li
+    sq = zr * zr + zi * zi
+    coef = torch.where(sq >= 1e-24, g3.float() / torch.sqrt(torch.clamp(sq, min=1e-24)), 0.0)
+    u_r, u_i = coef * zr, coef * zi
+    a_re, a_im = ue_pieces(fft_cuda.uh_stacked(ur, ui), ur.shape[0])
+    t = (_split_product(a_re, _pieces(u_r, 2), "hk,bhj->bkj", BF16X3)
+         + _split_product(a_im, _pieces(u_i, 2), "hk,bhj->bkj", BF16X3))
+    k = ur.shape[1]
+    return u_r.to(x3.dtype), t[:, :k].contiguous(), (-t[:, k:]).contiguous()

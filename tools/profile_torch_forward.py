@@ -10,7 +10,15 @@ masks. Either way: warm-up, ``--iters`` timed with CUDA events, then
 ``--iters`` traced with ``torch.profiler``. Prints the card's name and power
 limit, the time per batch, the device busy share of the traced window, the
 device time grouped by kind (convolutions, GEMMs, the high-pass kernels,
-the optimizer, everything else) and the top ops by device time.
+the optimizer, everything else) and the top ops by device time. To tell
+lost trace records from a card that waits on the host, it also counts per
+batch the kernel launches the host issued (the trace's launch API records)
+against the kernel records on the device, the union of the kernels' busy
+intervals against the span from the first to the last, and the host's
+time to issue one batch without synchronising. In ``--mode forward`` it
+captures one forward in a CUDA graph: the graph's kernel nodes are the
+forward's launches, and a replay's time (CUDA events) is its device time
+without the host's gaps between launches.
 
     python tools/profile_torch_forward.py [--mode forward|train] [--size 512]
         [--batch 16] [--dtype bfloat16] [--iters 5] [--highpass_impl auto]
@@ -21,6 +29,7 @@ Fails when no CUDA card is present: a CPU run measures nothing of the card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
 import subprocess
 import sys
@@ -45,6 +54,79 @@ def kind(name: str) -> str:
     if any(t in n for t in ("gemm", "sm90_", "sm80_", "cutlass", "ampere", "xmma")):
         return "matmuls (cuBLAS)"
     return "elementwise, norms, copies, reductions"
+
+
+# The CUDA calls that launch a kernel (runtime and cu* API), as the profiler names them.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaLaunchCooperativeKernel")
+
+
+def launches_vs_records(prof):
+    """(launch calls by name, kernel records, busy us, span us) over a
+    trace: busy is the union of the kernel records' intervals, span the time
+    from the first kernel's start to the last one's end."""
+    calls, spans = {}, []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if "#" in e.name or e.name.startswith(("Memcpy", "Memset", "ProfilerStep")):
+                continue
+            spans.append((e.time_range.start, e.time_range.end))
+        elif e.name in LAUNCH_CALLS:
+            calls[e.name] = calls.get(e.name, 0) + 1
+    spans.sort()
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = spans[-1][1] - spans[0][0] if spans else 0.0
+    return calls, len(spans), busy, span
+
+
+def graph_forward(run, iters: int):
+    """(kernel nodes, other nodes, ms per replay) of one ``run()`` captured
+    in a CUDA graph, or None where this PyTorch cannot hand out the graph."""
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:  # a PyTorch without keep_graph
+        return None
+    with torch.cuda.graph(graph):
+        run()
+    rt = None
+    for name in ("libcudart.so.12", "libcudart.so"):
+        try:
+            rt = ctypes.CDLL(name)
+            break
+        except OSError:
+            continue
+    if rt is None:
+        return None
+    ptr, size_p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
+    rt.cudaGraphGetNodes.argtypes = [ptr, ctypes.POINTER(ptr), size_p]
+    rt.cudaGraphGetNodes.restype = ctypes.c_int
+    rt.cudaGraphNodeGetType.argtypes = [ptr, ctypes.POINTER(ctypes.c_int)]
+    rt.cudaGraphNodeGetType.restype = ctypes.c_int
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if rt.cudaGraphGetNodes(raw, None, ctypes.byref(count)) != 0:
+        return None
+    nodes = (ptr * count.value)()
+    rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(count))
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        rt.cudaGraphNodeGetType(node, ctypes.byref(kind))
+        kernels += kind.value == 0  # cudaGraphNodeTypeKernel
+    graph.instantiate()
+    for _ in range(2):
+        graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return kernels, count.value - kernels, start.elapsed_time(end) / iters
 
 
 def forward_runner(args):
@@ -116,6 +198,18 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / args.iters
         peak = torch.cuda.max_memory_allocated() / 2**30
+        # The host's time to issue a batch, not waiting for the card.
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            run()
+        host_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+        torch.cuda.synchronize()
+        graphed = None
+        if args.mode == "forward":
+            try:
+                graphed = graph_forward(run, args.iters)
+            except RuntimeError as e:  # reported; the other numbers stand
+                print(f"the forward could not be captured in a CUDA graph: {e}")
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
@@ -135,9 +229,21 @@ def main(argv=None) -> int:
     print(f"{args.mode} ({args.batch},3,{args.size},{args.size}) {args.dtype} highpass="
           f"{args.highpass_impl}: {ms:.2f} ms/batch ({args.batch * 1e3 / ms:.1f} img/s, "
           f"CUDA events); peak memory {peak:.2f} GiB")
+    print(f"host issue time {host_ms:.2f} ms/{args.mode} without synchronising "
+          f"(the card waits on the host where it is near {ms:.2f})")
     if total == 0:
         print("the profiler recorded no device time; only the CUDA-event time above holds")
         return 0
+    if graphed is not None:
+        print(f"one forward captured in a CUDA graph: {graphed[0]} kernel nodes ({graphed[1]} "
+              f"other nodes); a replay takes {graphed[2]:.2f} ms (CUDA events), against "
+              f"{ms:.2f} ms launched from the host")
+    calls, records, busy_us, span_us = launches_vs_records(prof)
+    per_call = {k: v / args.iters for k, v in calls.items()}
+    print(f"per {args.mode}: kernel launch calls {per_call}, "
+          f"{records / args.iters:.1f} kernel records on the device; kernels busy "
+          f"{busy_us / args.iters / 1e3:.2f} ms of {span_us / args.iters / 1e3:.2f} ms from the "
+          f"first kernel to the last ({100 * (1 - busy_us / span_us):.1f}% idle)")
     print(f"traced {args.iters} {args.mode} steps: device busy {total / 1e3:.2f} ms of "
           f"{wall_us / 1e3:.2f} ms wall ({100 * total / wall_us:.1f}% busy)")
     groups = defaultdict(float)
