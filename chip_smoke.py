@@ -10,9 +10,10 @@ Phases (any failure exits non-zero; none is skipped):
    sm_90a, one nvcc per source, all started together; print the build time
    and ptxas' register report, and, where the toolkit has ``cuobjdump``,
    the count of tensor-core instructions (HMMA/HGMMA) in the SASS of the
-   four tensor-core kernels (kernel 1, ``contract_kernel_tc``; kernel 2,
+   five tensor-core kernels (kernel 1, ``contract_kernel_tc``; kernel 2,
    ``expand_kernel_tc``; kernel 3, ``bwd_contract_kernel_tc``; kernel 4,
-   ``bwd_expand_kernel_tc``), which must be above 0 for every K.
+   ``bwd_expand_kernel_tc``; kernel 6, ``conv3x3_kernel_tc``), which must be
+   above 0 for every K of kernels 1-4 and both types of kernel 6.
 3. The forward kernels against their plain PyTorch twins at the serving
    path's two high-pass sites, (16,256,256,128) and (16,512,512,64), m = 20,
    in float32 (TF32 off) and bfloat16: contract and expand alone, then the
@@ -33,10 +34,18 @@ Phases (any failure exits non-zero; none is skipped):
 3c. Kernel 5 (the Canny stencil) against its twin in both modes at the
    Canny path's site, (8,512,512,1) float32 grayscale of seeded blob images:
    the share of pixels that disagree and, in mode ``improve``, the max |d|
-   of the NMS magnitude. Kernel 6 (the 3x3 conv) against its twin (cuDNN in
-   float32, TF32 off) in bfloat16 and float32 at (8,512,512,128) -> 64 and
-   (8,512,512,64) -> 64, by relative L2, timed beside one cuDNN call of the
-   same function on channels_last bfloat16 (its ``library_ms``).
+   of the NMS magnitude. Its time by a host loop of wrapper calls and, as
+   device time, by replays of a CUDA graph of 20 launches (the 8 MB image
+   and output stay in the 50 MB L2 between them, as they do in the chain,
+   whose grayscale was just written). The hysteresis kernel (the fixpoint
+   behind mode ``improve``) on that site's NMS output, equal bit for bit to
+   the plain loop ``hysteresis_fixpoint``, its rounds beside the loop's
+   steps. Kernel 6 (the 3x3 conv, tensor cores: bf16, and bf16x6 in
+   float32) against its twin (cuDNN in float32, TF32 off) in bfloat16 and
+   float32 at (8,512,512,128) -> 64 and (8,512,512,64) -> 64, by relative
+   L2, timed in turns (kernel, cuDNN, cuDNN, kernel) with one cuDNN call of
+   the same function on channels_last operands of its type, TF32 off (its
+   ``library_ms``), beside its bound and the floor of its arithmetic.
 4. Serve through the entry point a user runs: a seeded random-init EELUnet
    (full width, 26.26M params) is written as an upstream-layout .npz, and
    ``python -m eelunet_tpu_torch.cli.serve ... --image_size 512 --set
@@ -63,18 +72,22 @@ Phases (any failure exits non-zero; none is skipped):
    tree of 24/8 images, in a subprocess; check the history, the best tags
    and ``last``, the run's kernel launches, and serve the ``best`` tag
    through the Predictor on the card.
-9. The Canny path: in-process, the train step at 512^2 b8 bf16 with
+9. The Canny path: in-process, the device-side input chain once under
+   ``torch.cuda.set_sync_debug_mode("error")`` (it reads nothing back to
+   the host), then the train step at 512^2 b8 bf16 with
    ``data.add_canny_edge`` and ``data.canny_enhance`` (4 input channels)
-   behind the device-side input chain, timed against phase 6's step, with
-   the chain's time, the eval step's time and the hysteresis iterations
-   per batch. Then ``python -m eelunet_tpu_torch.cli.train`` with both
-   flags for 2 epochs on phase 7's tree and ``python -m
-   eelunet_tpu_torch.cli.evaluate`` on its best tag: kernel 5 launches twice
-   per batch in both runs, kernels 1-4 as in phase 7, and the evaluation
-   prints the metrics the training run recorded for that tag.
+   behind the chain, timed against phase 6's step, with the chain's time,
+   the eval step's time with the chain and fed pre-made inputs, and the
+   hysteresis kernel's rounds per pass. Then
+   ``python -m eelunet_tpu_torch.cli.train`` with both flags for 2 epochs on
+   phase 7's tree and ``python -m eelunet_tpu_torch.cli.evaluate`` on its
+   best tag: kernel 5 and the hysteresis kernel launch twice per batch in
+   both runs, kernels 1-4 as in phase 7, and the evaluation prints the
+   metrics the training run recorded for that tag.
 
 The line before the last holds the kernels' JSON record, the one before it
-the card's name and power limit; the last line is
+the card's name and power limit, and the one before that the hysteresis
+kernel's (not a TPU kernel's) time, check and launches; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -169,6 +182,10 @@ CONV_SITES = ((8, 512, 512, 128, 64), (8, 512, 512, 64, 64))
 # Kernel 6 vs its twin (cuDNN in float32, TF32 off), relative L2: float32
 # differs by summation order, bfloat16 by one rounding of the output.
 CONV_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# Kernel 6's arithmetic: bf16 products of bf16 operands, and in float32
+# bf16x6 (both operands split into three bf16 pieces, six products each);
+# as (name, bf16 products per product of its work).
+CONV_ARITHMETIC = {"bfloat16": ("bfloat16", 1), "float32": ("bf16x6", 6)}
 # Floating-point operations per output pixel of kernel 5, counted from its
 # code: blur 2 x (5 mul + 4 add), Sobel 6 sub + 2 mul + 4 add, mag^2 3,
 # then the zero mode's bucket products 3, or the improve mode's sqrt, eps
@@ -185,11 +202,20 @@ PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 # and the train step (512^2 b8 bf16).
 CUDA_CORE_23_FORWARD_MS = 62.01
 CUDA_CORE_23_STEP_MS = 114.69
-# The kernels on tensor cores and their functions in the SASS.
-TC_KERNELS = {"highpass_contract": ("highpass", "contract_kernel_tc"),
-              "highpass_expand": ("highpass", "expand_kernel_tc"),
-              "highpass_bwd_contract": ("highpass_bwd", "bwd_contract_kernel_tc"),
-              "highpass_bwd_expand": ("highpass_bwd", "bwd_expand_kernel_tc")}
+# Readings of the Canny path with the hysteresis as a plain loop that reads
+# a flag back per step, on an NVIDIA H100 80GB HBM3 at 700.00 W, printed
+# beside this run's: the chain per batch, the Canny train step and the eval
+# step with the chain (512^2 b8 bf16).
+LOOP_HYSTERESIS_MS = {"chain": 5.24, "canny step": 119.75, "eval step": 57.42}
+# The kernels on tensor cores: (library, function in the SASS, the
+# instantiations that must each hold tensor-core instructions).
+TC_KERNELS = {"highpass_contract": ("highpass", "contract_kernel_tc", ("16", "32", "48", "64")),
+              "highpass_expand": ("highpass", "expand_kernel_tc", ("16", "32", "48", "64")),
+              "highpass_bwd_contract": ("highpass_bwd", "bwd_contract_kernel_tc",
+                                        ("16", "32", "48", "64")),
+              "highpass_bwd_expand": ("highpass_bwd", "bwd_expand_kernel_tc",
+                                      ("16", "32", "48", "64")),
+              "conv3x3": ("conv3x3", "conv3x3_kernel_tc", ("bf16", "f32"))}
 
 
 class SmokeFailure(RuntimeError):
@@ -324,7 +350,7 @@ def phase_build():
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
         print("[2] no cuobjdump in the toolkit: tensor-core instructions not counted")
-    for name, (lib, fn) in TC_KERNELS.items():
+    for name, (lib, fn, variants) in TC_KERNELS.items():
         if not os.path.exists(cuobjdump):
             break
         sass = subprocess.run([cuobjdump, "-sass", str(built[lib][0])], capture_output=True,
@@ -333,15 +359,23 @@ def phase_build():
         for line in sass.splitlines():
             if "Function :" in line:
                 current = line.split("Function :", 1)[1].strip()
-            elif current and fn in current and ("HMMA" in line or "HGMMA" in line):
+            elif current and fn + "I" in current and ("HMMA" in line or "HGMMA" in line):
                 counts[current] = counts.get(current, 0) + 1
-        per_k = {f.split(fn + "ILi", 1)[1].split("E", 1)[0]: c
-                 for f, c in counts.items() if fn + "ILi" in f}
-        print(f"[2] {name} ({fn}): tensor-core instructions (HMMA/HGMMA) in the SASS per K "
-              f"{dict(sorted(per_k.items(), key=lambda kv: int(kv[0])))}")
-        check(len(per_k) == 4 and min(per_k.values()) > 0,
-              f"{fn}: no tensor-core instructions in the SASS of every K: {per_k}")
+        per = {_instantiation(f.split(fn + "I", 1)[1]): c for f, c in counts.items()}
+        print(f"[2] {name} ({fn}): tensor-core instructions (HMMA/HGMMA) in the SASS per "
+              f"instantiation {per}")
+        check(sorted(per) == sorted(variants) and min(per.values()) > 0,
+              f"{fn}: no tensor-core instructions in the SASS of every one of {variants}: {per}")
     sys.stdout.flush()
+
+
+def _instantiation(args: str) -> str:
+    """The template arguments of a mangled kernel name, after its ``I``: K of
+    kernels 1-4 (``Li48E``), the type of kernel 6 (``13__nv_bfloat16`` or
+    ``f``)."""
+    if args.startswith("Li"):
+        return args[2:].split("E", 1)[0]
+    return "bf16" if args.startswith("13__nv_bfloat16") else "f32" if args[0] == "f" else args
 
 
 def phase_kernels():
@@ -580,19 +614,59 @@ def canny_bound(shape, mode: str) -> tuple:
 def conv_bound(site, dname: str) -> tuple:
     """(bound_ms, bound_by) of one launch of kernel 6 at ``site`` (B,H,W,Cin,
     Cout) in ``dname``: x, w and out once each (scale and shift in f32),
-    against 2*B*H*W*9*Cin*Cout flops at the peak for the input type."""
+    against 2*B*H*W*9*Cin*Cout flops at the tensor cores' peak for the input
+    type: bf16, and TF32 for float32 (the tensor cores take f32 at best in
+    TF32; kernels 2-4's bounds take it so too)."""
     b, h, w, cin, cout = site
     sx = 2 if dname == "bfloat16" else 4
     nbytes = (b * h * w * (cin + cout) + 9 * cin * cout) * sx + 2 * cout * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * b * h * w * 9 * cin * cout / PEAK_FLOPS[dname] * 1e3
+    peak = PEAK_FLOPS["bfloat16" if dname == "bfloat16" else "tf32"]
+    t_ops = 2.0 * b * h * w * 9 * cin * cout / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def conv_arithmetic_floor(site, dname: str) -> float:
+    """ms of the bf16 products kernel 6 issues in ``dname`` (CONV_ARITHMETIC:
+    one per product of its work in bfloat16, six in float32) at the bf16
+    peak."""
+    b, h, w, cin, cout = site
+    return CONV_ARITHMETIC[dname][1] * 2.0 * b * h * w * 9 * cin * cout / PEAK_FLOPS[
+        "bfloat16"] * 1e3
+
+
+def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
+    """Device ms per call of ``fn``: replays of a CUDA graph that holds
+    ``launches`` calls, so no host work sits between the kernels."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm, off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * launches)
+    del graph
+    return ms
+
+
 def phase_canny_conv_kernels():
-    """Kernels 5 and 6 against their twins on the card; returns the record
-    of kernel 5 in mode "improve" (the Canny path's mode) and of kernel 6 in
-    bfloat16 at (8,512,512,128) -> 64."""
+    """Kernels 5 and 6 and the hysteresis kernel against their twins on the
+    card; returns the record of kernel 5 in mode "improve" (the Canny path's
+    mode), of kernel 6 in bfloat16 at (8,512,512,128) -> 64, and the
+    hysteresis kernel's readings under "hysteresis"."""
     import torch
     import torch.nn.functional as F
 
@@ -619,30 +693,56 @@ def phase_canny_conv_kernels():
                 "nms_e": (got - want)[both].abs().max().item() if mode == "improve" else 0.0,
                 "kept": (got > 0).float().mean().item(),
                 "plain_ms": cuda_ms(lambda: edge_cuda.fused_canny_reference(gray, low, mode=mode)),
-                "ms": []}
+                "loop": [], "graph": []}
         del got, want, both
-    # The two modes' kernel times in turns (zero, improve, improve, zero).
+    # The two modes' times in turns (zero, improve, improve, zero): a host
+    # loop of wrapper calls, and the device time by CUDA-graph replay.
     with torch.inference_mode():
         for mode in ("zero", "improve", "improve", "zero"):
-            rows[mode]["ms"].append(
-                cuda_ms(lambda: edge_cuda.fused_canny(gray, low, mode=mode), iters=20, warmup=3))
+            fn = lambda: edge_cuda.fused_canny(gray, low, mode=mode)  # noqa: E731
+            rows[mode]["loop"].append(cuda_ms(fn, iters=20, warmup=3))
+            rows[mode]["graph"].append(graph_ms(fn))
     for mode, r in rows.items():
-        ms = float(np.mean(r["ms"]))
+        ms, loop_ms = float(np.mean(r["graph"])), float(np.mean(r["loop"]))
         bound_ms, bound_by = canny_bound(CANNY_SITE, mode)
         print(f"[3c] fused_canny {mode:7s} {str(CANNY_SITE):22s} float32  pixels kept "
               f"{r['kept']:.4f}, disagreeing {r['disagree']:.3e} "
               f"(bound {CANNY_TOL['disagree']:g}); "
               f"max|d| {r['abs_e']:.3e}, NMS magnitude max|d| where both keep {r['nms_e']:.3e} "
-              f"(bound {CANNY_TOL['nms']:g})  kernel {ms:.4f} ms (turns "
-              f"{[round(t, 4) for t in r['ms']]})  plain {r['plain_ms']:.3f} ms  bound "
-              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"(bound {CANNY_TOL['nms']:g})  kernel {ms:.4f} ms by graph replay (turns "
+              f"{[round(t, 4) for t in r['graph']]}; image in L2), {loop_ms:.4f} ms by a host "
+              f"loop (turns {[round(t, 4) for t in r['loop']]})  plain {r['plain_ms']:.3f} ms  "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {100 * bound_ms / ms:.1f}% of it)",
+              flush=True)
         check(r["disagree"] <= CANNY_TOL["disagree"] and r["nms_e"] <= CANNY_TOL["nms"],
               f"fused_canny {mode}: {r['disagree']:.3e} of pixels disagree, "
               f"NMS max|d| {r['nms_e']:.3e}")
         if mode == "improve":
             record["fused_canny"] = ((r["abs_e"], r["disagree"]), ms, r["plain_ms"], None,
                                      bound_ms, bound_by)
-    del gray
+
+    # The hysteresis kernel on this site's NMS output at the chain's
+    # thresholds, against the plain loop to the fixpoint.
+    lo, hi = 100.0 / 255.0, 200.0 / 255.0
+    with torch.inference_mode():
+        nms = edge_cuda.fused_canny(gray, mode="improve")
+        got, rounds = edge_cuda.hysteresis(nms, lo, hi)
+        want, steps = edge_cuda.hysteresis_fixpoint(nms >= hi, (nms >= lo) & (nms < hi))
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want.float())
+        hyst = {"equal": equal, "rounds": int(rounds.item()), "steps": steps,
+                "on": got.mean().item(),
+                "ms": cuda_ms(lambda: edge_cuda.hysteresis(nms, lo, hi), iters=10),
+                "plain_ms": cuda_ms(lambda: edge_cuda.hysteresis_reference(nms, lo, hi), iters=3),
+                # nms read once, the map written once (float32)
+                "bound_ms": 2 * nms.numel() * 4 / HBM_BYTES_PER_S * 1e3}
+    print(f"[3c] hysteresis {str(CANNY_SITE):22s} float32  equal to hysteresis_fixpoint bit for "
+          f"bit: {equal} ({hyst['on']:.4f} of pixels on); {hyst['rounds']} rounds against the "
+          f"loop's {steps} steps  kernel {hyst['ms']:.4f} ms  plain loop {hyst['plain_ms']:.3f} "
+          f"ms  bound {hyst['bound_ms']:.4f} ms (bytes)", flush=True)
+    check(equal, "hysteresis kernel differs from hysteresis_fixpoint")
+    record["hysteresis"] = hyst
+    del gray, nms, got, want
 
     for site in CONV_SITES:
         b, h, w, cin, cout = site
@@ -659,19 +759,24 @@ def phase_canny_conv_kernels():
                 e = (rel_err(got, want)[0], rel_l2(got, want))
                 del got, want
                 # Library yardstick: one cuDNN conv with the affine folded in,
-                # then ReLU, on channels_last operands made first.
+                # then ReLU, on channels_last operands made first (TF32 off).
                 x_cl = x.permute(0, 3, 1, 2)
                 w_lib = (wt.float() * scale).permute(3, 2, 0, 1).to(dtype).contiguous(
                     memory_format=torch.channels_last)
                 b_lib = shift.to(dtype)
-                ms = cuda_ms(lambda: conv_cuda.conv3x3(x, wt, scale, shift, relu=True))
+                ms, lib_ms, turns = in_turns(
+                    lambda: conv_cuda.conv3x3(x, wt, scale, shift, relu=True),
+                    lambda: F.relu(F.conv2d(x_cl, w_lib, b_lib, padding=1)))
                 plain_ms = cuda_ms(
                     lambda: conv_cuda.conv3x3_reference(x, wt, scale, shift, relu=True))
-                lib_ms = cuda_ms(lambda: F.relu(F.conv2d(x_cl, w_lib, b_lib, padding=1)))
             bound_ms, bound_by = conv_bound(site, dname)
+            arith = CONV_ARITHMETIC[dname][0]
             print(f"[3c] conv3x3 {str(site):22s} {dname:8s} max|d| {e[0]:.3e} rel-l2 {e[1]:.3e} "
                   f"(bound {CONV_TOL[dname]:g})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-                  f"library {lib_ms:.3f} ms  bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+                  f"library {lib_ms:.3f} ms (turns: kernel, cuDNN, cuDNN, kernel "
+                  f"{[round(t, 4) for t in turns]})  bound {bound_ms:.3f} ms ({bound_by}; "
+                  f"{100 * bound_ms / ms:.1f}% of it); floor of its arithmetic ({arith}) "
+                  f"{conv_arithmetic_floor(site, dname):.3f} ms", flush=True)
             check(e[1] <= CONV_TOL[dname], f"conv3x3 {site} {dname}: rel-l2 {e[1]:.3e}")
             if site == CONV_SITES[0] and dtype == torch.bfloat16:
                 record["conv3x3"] = (e, ms, plain_ms, lib_ms, bound_ms, bound_by)
@@ -1029,7 +1134,7 @@ def phase_train_cli(workdir: str):
     save, logs = os.path.join(workdir, "ckpt"), os.path.join(workdir, "runs")
     _, launches, wall = _cli("7", "train", _train_args(tree, save, logs))
     want = {k: 2 * (CLI_FORWARDS if k in FWD else CLI_STEPS) for k in HIGHPASS}
-    want.update(fused_canny=0, conv3x3=0)
+    want.update(fused_canny=0, hysteresis=0, conv3x3=0)
     check(launches == want, f"cli.train launches {launches}, want {want}")
     root = os.path.join(save, "eelunet")
     _, best = _history(root)
@@ -1056,15 +1161,16 @@ CANNY_FLAGS = ("data.add_canny_edge=true", "data.canny_enhance=true")
 
 
 def phase_canny_path(workdir: str, tree: str, plain_step_ms: float):
-    """The Canny path: in-process step, chain and eval timing and the
-    hysteresis iterations, then cli.train and cli.evaluate with both flags.
-    Returns the two runs' launches, summed."""
+    """The Canny path: the chain under sync-debug "error", in-process step,
+    chain and eval timing and the hysteresis kernel's rounds, then cli.train
+    and cli.evaluate with both flags. Returns the two runs' launches,
+    summed."""
     import torch
 
     from eelunet_tpu_torch.config import TrainConfig, apply_overrides
     from eelunet_tpu_torch.data.augment import canny_enhance, make_input_preprocess
     from eelunet_tpu_torch.ops import edge_cuda
-    from eelunet_tpu_torch.ops.edge import hysteresis_fixpoint, rgb_to_grayscale
+    from eelunet_tpu_torch.ops.edge import rgb_to_grayscale
     from eelunet_tpu_torch.train.trainer import Trainer, make_eval_step, make_train_step
 
     dev = torch.device("cuda")
@@ -1083,19 +1189,30 @@ def phase_canny_path(workdir: str, tree: str, plain_step_ms: float):
     edge_cuda.reset_launches()
     prepped = [preprocess(*b) for b in raw]
     torch.cuda.synchronize()
-    check(edge_cuda.LAUNCHES == {"fused_canny": 4}, f"chain launches: {edge_cuda.LAUNCHES}")
+    check(edge_cuda.LAUNCHES == {"fused_canny": 4, "hysteresis": 4},
+          f"chain launches: {edge_cuda.LAUNCHES}")
     check(tuple(prepped[0][0].shape) == (8, 512, 512, 4), f"input {prepped[0][0].shape}")
+    # The chain reads nothing back to the host: any synchronising call
+    # raises in this mode.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = preprocess(*raw[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(torch.equal(again[0], prepped[0][0]), "the chain under sync-debug differs")
+    del again
 
-    # Hysteresis steps to the fixpoint, per batch, for each of the chain's
-    # two Canny passes (on the raw image, then on the enhanced one).
-    iters = []
+    # The hysteresis kernel's rounds to the fixpoint, per batch, for each of
+    # the chain's two Canny passes (on the raw image, then on the enhanced
+    # one); read after the loop.
+    rounds = []
     with torch.inference_mode():
         for u8, _ in raw:
             x = u8.float() / 255.0
             for imgs in (x, canny_enhance(x, cfg.data.canny_enhance_alpha)):
                 nms = edge_cuda.fused_canny(rgb_to_grayscale(imgs).contiguous(), mode="improve")
-                lo, hi = 100.0 / 255.0, 200.0 / 255.0
-                iters.append(hysteresis_fixpoint(nms >= hi, (nms >= lo) & (nms < hi))[1])
+                rounds.append(edge_cuda.hysteresis(nms, 100.0 / 255.0, 200.0 / 255.0)[1])
+    rounds = [int(r.item()) for r in rounds]
 
     def events_ms(fn, n: int) -> float:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1112,13 +1229,17 @@ def phase_canny_path(workdir: str, tree: str, plain_step_ms: float):
     alone = events_ms(lambda i: step(state, *prepped[i % 2]), 4)
     chain = events_ms(lambda i: preprocess(*raw[i % 2]), 4)
     ev = events_ms(lambda i: eval_step(state, *preprocess(*raw[i % 2])), 4)
+    ev_alone = events_ms(lambda i: eval_step(state, *prepped[i % 2]), 4)
     losses = [v.item() for v in losses]
     check(all(np.isfinite(losses)), f"non-finite Canny-path loss: {losses}")
     print(f"[9] Canny train step 512^2 b8 bf16, 4 input channels: {whole:.2f} ms/step with the "
           f"input chain ({8e3 / whole:.1f} img/s): chain {chain:.2f} ms + step {alone:.2f} ms; "
           f"phase 6's step without the augmentations {plain_step_ms:.2f} ms; eval step with "
-          f"the chain {ev:.2f} ms/batch; hysteresis steps per batch {iters} (enhance, edge "
-          f"per batch); losses {[round(v, 4) for v in losses]}", flush=True)
+          f"the chain {ev:.2f} ms/batch ({ev_alone:.2f} fed pre-made inputs); hysteresis kernel "
+          f"rounds per pass {rounds} (enhance, "
+          f"edge per batch); losses {[round(v, 4) for v in losses]}; with the hysteresis as a "
+          f"plain loop reading a flag back per step, on an NVIDIA H100 80GB HBM3 at 700.00 W: "
+          f"{LOOP_HYSTERESIS_MS}", flush=True)
     del state, trainer, raw, prepped
     torch.cuda.empty_cache()
 
@@ -1128,7 +1249,7 @@ def phase_canny_path(workdir: str, tree: str, plain_step_ms: float):
     want = {k: 2 * (CLI_FORWARDS if k in FWD else CLI_STEPS) for k in HIGHPASS}
     # Every batch the run feeds (train, val, test) goes through the chain
     # once: two launches of kernel 5 per forward.
-    want.update(fused_canny=2 * CLI_FORWARDS, conv3x3=0)
+    want.update(fused_canny=2 * CLI_FORWARDS, hysteresis=2 * CLI_FORWARDS, conv3x3=0)
     check(trained == want, f"Canny cli.train launches {trained}, want {want}")
     hist, best = _history(os.path.join(save, "eelunet"))
     out, evaluated, wall_e = _cli("9", "evaluate", [
@@ -1136,7 +1257,7 @@ def phase_canny_path(workdir: str, tree: str, plain_step_ms: float):
         "--batch_size", "8", "--set", "model.dtype=bfloat16", "--seed", str(SEED),
         "--checkpoint", best, *flags])
     want_e = {k: 2 if k in FWD else 0 for k in HIGHPASS}
-    want_e.update(fused_canny=2, conv3x3=0)
+    want_e.update(fused_canny=2, hysteresis=2, conv3x3=0)
     check(evaluated == want_e, f"Canny cli.evaluate launches {evaluated}, want {want_e}")
     metrics = json.loads(next(ln for ln in out.splitlines()
                               if ln.startswith("metrics: ")).split(": ", 1)[1])
@@ -1147,7 +1268,7 @@ def phase_canny_path(workdir: str, tree: str, plain_step_ms: float):
           f"vs the training run's for that tag: max|d| {diff:.3e} (dice {metrics['dice']:.4f}, "
           f"boundary_f1 {metrics['boundary_f1']:.4f})", flush=True)
     check(metrics == recorded, f"cli.evaluate {metrics} != the training run's {recorded}")
-    return {k: trained[k] + evaluated[k] for k in KERNELS}
+    return {k: trained[k] + evaluated[k] for k in (*KERNELS, "hysteresis")}
 
 
 def main() -> int:
@@ -1171,8 +1292,14 @@ def main() -> int:
         step = phase_train(workdir)
         trained, tree = phase_train_cli(workdir)
         canny = phase_canny_path(workdir, tree, step["step_ms"])
-    launches = {k: served.get(k, 0) + trained[k] + canny[k] for k in KERNELS}
+    launches = {k: served.get(k, 0) + trained[k] + canny[k] for k in (*KERNELS, "hysteresis")}
     print(f"[8] all phases passed in {time.monotonic() - t0:.1f} s")
+    hyst = record.pop("hysteresis")
+    print(f"[3c] hysteresis (csrc/canny.cu hysteresis_kernel; the JAX package's lax.while_loop, "
+          f"eelunet_tpu/ops/edge.py:147, not a TPU kernel): launches {launches['hysteresis']} "
+          f"on the main paths (one per launch of fused_canny in mode improve); "
+          f"{hyst['ms']:.4f} ms at {CANNY_SITE}, plain loop {hyst['plain_ms']:.3f} ms, bound "
+          f"{hyst['bound_ms']:.4f} ms; equal to hysteresis_fixpoint bit for bit: {hyst['equal']}")
     print(card)
     kernels = []
     for name in KERNELS:

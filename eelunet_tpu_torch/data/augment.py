@@ -14,7 +14,8 @@ after them.
 
 from __future__ import annotations
 
-from typing import Sequence
+import functools
+from typing import Sequence, Tuple
 
 import torch
 
@@ -31,9 +32,19 @@ def normalize_imagenet(
     std: Sequence[float] = (0.229, 0.224, 0.225),
 ) -> torch.Tensor:
     """ImageNet normalisation of NHWC images in [0, 1] (ToothDataset.py:60)."""
-    m = torch.tensor(mean, dtype=images.dtype, device=images.device).view(1, 1, 1, -1)
-    s = torch.tensor(std, dtype=images.dtype, device=images.device).view(1, 1, 1, -1)
+    m = _constant(tuple(mean), images.dtype, images.device).view(1, 1, 1, -1)
+    s = _constant(tuple(std), images.dtype, images.device).view(1, 1, 1, -1)
     return (images - m) / s
+
+
+@functools.lru_cache(maxsize=32)
+def _constant(values: Tuple[float, ...], dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, uploaded once per dtype and
+    device: an upload per batch would make the host wait for the card and
+    drain the queue the chain keeps ahead of it. Read only; made outside
+    inference mode, so autograd may use it later."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def add_canny_edge(images: torch.Tensor) -> torch.Tensor:
@@ -49,7 +60,7 @@ def canny_enhance(images: torch.Tensor, alpha: float = 0.2,
     clip(image + alpha * edges * edge_color, 0, 1), cv2.addWeighted's
     semantics."""
     edges = canny_edge_improve(rgb_to_grayscale(images), _CV2_LOW, _CV2_HIGH)
-    color = torch.tensor(edge_color, dtype=images.dtype, device=images.device).view(1, 1, 1, 3)
+    color = _constant(tuple(edge_color), images.dtype, images.device).view(1, 1, 1, 3)
     return torch.clamp(images + alpha * (edges * color), 0.0, 1.0)
 
 

@@ -3,9 +3,13 @@
 
 ``csrc/conv3x3.cu`` convolves NHWC x (B,H,W,Cin) with HWIO weights
 (3,3,Cin,Cout), accumulates in float32, applies a per-channel
-``acc * scale + shift`` and an optional ReLU, and writes x's type. Like the
-JAX kernel, no model calls it: it is the direct-convolution pattern held
-against the library convolution (``chip_smoke.py`` times both on the card).
+``acc * scale + shift`` and an optional ReLU, and writes x's type. It is an
+implicit GEMM on the tensor cores (``mma.sync``, f32 sums): bf16 operands
+as they are, float32 ones split into three bf16 pieces each as the kernel
+stages them, every product taken as bf16x6 (``csrc/tc_bf16.cuh``). Like the
+JAX kernel, no model calls it: it is the convolution pattern held against
+the library convolution (``chip_smoke.py`` times both on the card, in
+turns).
 
 ``conv3x3`` launches the kernel on a CUDA tensor and counts the launch in
 ``LAUNCHES``; on a CPU tensor it runs the plain twin ``conv3x3_reference``

@@ -7,8 +7,10 @@ neighbour tensors by zero pad and slice, and hysteresis as a loop to a
 fixpoint. On a CUDA tensor ``canny_edge`` launches TPU kernel 5
 (``ops/edge_cuda.fused_canny``, mode ``zero``) for its whole chain, and
 ``canny_edge_improve`` launches it in mode ``improve`` for the blur, Sobel
-and non-max-suppression stage; its double threshold and hysteresis stay
-here in PyTorch, as the JAX package runs them in XLA.
+and non-max-suppression stage, then the hysteresis kernel
+(``ops/edge_cuda.hysteresis``) for the double threshold and the fixpoint,
+with no read back to the host, as the JAX package keeps its
+``lax.while_loop`` on the device.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from eelunet_tpu_torch.ops import edge_cuda
-from eelunet_tpu_torch.ops.edge_cuda import ANGLE_EPS, gaussian_kernel
+from eelunet_tpu_torch.ops.edge_cuda import (ANGLE_EPS, _dilate, gaussian_kernel,
+                                             hysteresis_fixpoint)
 
 def rgb_to_grayscale(batch: torch.Tensor) -> torch.Tensor:
     """0.299 R + 0.587 G + 0.114 B; (N,H,W,3) -> (N,H,W,1) (tools.py:212-228)."""
@@ -98,12 +101,22 @@ def _check_kernel_size(fn: str, x: torch.Tensor, gaussian_kernel_size: int) -> N
                          f"{x.device}")
 
 
-def _fused(x: torch.Tensor, **kw) -> torch.Tensor:
-    """Kernel 5 on every channel of an NHWC tensor (channels ride the batch
-    axis), float32 out."""
+def _planes(x: torch.Tensor) -> torch.Tensor:
+    """An NHWC tensor as contiguous float32 (N*C, H, W, 1) planes: the
+    channels ride the batch axis of the kernels."""
     n, h, w, c = x.shape
-    planes = x.float().permute(0, 3, 1, 2).reshape(n * c, h, w, 1).contiguous()
-    return edge_cuda.fused_canny(planes, **kw).view(n, c, h, w).permute(0, 2, 3, 1)
+    return x.float().permute(0, 3, 1, 2).reshape(n * c, h, w, 1).contiguous()
+
+
+def _nhwc(planes: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(N*C, H, W, 1) planes back to the NHWC layout of ``like``."""
+    n, h, w, c = like.shape
+    return planes.view(n, c, h, w).permute(0, 2, 3, 1)
+
+
+def _fused(x: torch.Tensor, **kw) -> torch.Tensor:
+    """Kernel 5 on every channel of an NHWC tensor, float32 out."""
+    return _nhwc(edge_cuda.fused_canny(_planes(x), **kw), x)
 
 
 def canny_edge(binary_mask: torch.Tensor, low_threshold: float = 0.2,
@@ -122,43 +135,34 @@ def canny_edge(binary_mask: torch.Tensor, low_threshold: float = 0.2,
     return (nms >= low_threshold).to(binary_mask.dtype)
 
 
-def _dilate(s: torch.Tensor) -> torch.Tensor:
-    """3x3 binary dilation of an NHWC bool map, zero outside the image."""
-    x = s.permute(0, 3, 1, 2).to(torch.float32)
-    return F.max_pool2d(x, 3, stride=1, padding=1).permute(0, 2, 3, 1) > 0
-
-
-def hysteresis_fixpoint(strong: torch.Tensor, weak: torch.Tensor, max_iters: int = 0):
-    """``strong |= dilate(strong) & weak`` on bool maps until nothing
-    changes, or for at most ``max_iters`` steps when that is > 0. Returns
-    (the grown bool map, the number of steps applied). Each step reads one
-    flag back to the host."""
-    s, it = strong, 0
-    while max_iters <= 0 or it < max_iters:
-        nxt = s | (_dilate(s) & weak)
-        if torch.equal(nxt, s):
-            break
-        s, it = nxt, it + 1
-    return s, it
-
-
 def hysteresis_thresholding(strong: torch.Tensor, weak: torch.Tensor,
                             max_iters: int = 0) -> torch.Tensor:
     """Connect weak edges 8-connected to strong ones, to a fixpoint
     (the textbook recurrence the JAX package runs as a ``while_loop``;
     tools.py:402-419 floods instead, see ``eelunet_tpu/ops/edge.py``).
-    ``max_iters`` > 0 caps the steps. Returns the strong map's dtype."""
-    out, _ = hysteresis_fixpoint(strong > 0.5, weak > 0.5, max_iters)
-    return out.to(strong.dtype)
+    ``max_iters`` > 0 caps the steps. Returns the strong map's dtype.
+
+    On a CUDA tensor nothing is read back to the host: to the fixpoint, the
+    hysteresis kernel runs on the map 2 strong + (weak and not strong)
+    thresholded at 1 and 2 (the same recurrence, since a strong pixel is
+    already grown); with a cap, exactly ``max_iters`` plain steps run, as a
+    step at the fixpoint changes nothing."""
+    s, wk = strong > 0.5, weak > 0.5
+    if strong.device.type == "cpu":
+        return hysteresis_fixpoint(s, wk, max_iters)[0].to(strong.dtype)
+    if max_iters > 0:
+        for _ in range(max_iters):
+            s = s | (_dilate(s) & wk)
+        return s.to(strong.dtype)
+    levels = 2.0 * s.float() + (wk & ~s).float()
+    edges, _ = edge_cuda.hysteresis(_planes(levels), 1.0, 2.0, strong.dtype)
+    return _nhwc(edges, strong)
 
 
 def _improve_nms(binary_mask: torch.Tensor, gaussian_kernel_size: int,
                  gaussian_sigma: float) -> torch.Tensor:
-    """The NMS magnitude of ``canny_edge_improve`` in float32: kernel 5 in
-    mode ``improve`` on a CUDA tensor, the plain chain on a CPU one."""
-    if binary_mask.device.type != "cpu":
-        _check_kernel_size("canny_edge_improve", binary_mask, gaussian_kernel_size)
-        return _fused(binary_mask, sigma=gaussian_sigma, mode="improve")
+    """The NMS magnitude of ``canny_edge_improve``'s plain chain (the
+    counterpart of kernel 5 in mode ``improve``)."""
     blurred = gaussian_blur(binary_mask, gaussian_kernel_size, gaussian_sigma)
     return non_max_suppression(*_grad_mag_angle(blurred, reflect_pad=True,
                                                 angle_eps=ANGLE_EPS))
@@ -169,11 +173,15 @@ def canny_edge_improve(binary_mask: torch.Tensor, low_threshold: float = 0.2,
                        gaussian_sigma: float = 1.0) -> torch.Tensor:
     """Canny with reflect padding, a stabilised atan2 and hysteresis
     (canny_edge_torch_improve, tools.py:358-399): (N,H,W,1) -> {0, 1} in
-    the input's dtype."""
+    the input's dtype. A CUDA tensor runs kernel 5 (mode ``improve``), then
+    the hysteresis kernel, and reads nothing back to the host."""
+    if binary_mask.device.type != "cpu":
+        _check_kernel_size("canny_edge_improve", binary_mask, gaussian_kernel_size)
+        nms = edge_cuda.fused_canny(_planes(binary_mask), sigma=gaussian_sigma, mode="improve")
+        edges, _ = edge_cuda.hysteresis(nms, low_threshold, high_threshold, binary_mask.dtype)
+        return _nhwc(edges, binary_mask)
     nms = _improve_nms(binary_mask, gaussian_kernel_size, gaussian_sigma)
-    strong = nms >= high_threshold
-    weak = (nms >= low_threshold) & (nms < high_threshold)
-    return hysteresis_fixpoint(strong, weak)[0].to(binary_mask.dtype)
+    return edge_cuda.hysteresis_reference(nms, low_threshold, high_threshold, binary_mask.dtype)
 
 
 def generate_edge_label(gt: torch.Tensor) -> torch.Tensor:

@@ -14,18 +14,27 @@ Two modes:
   the blur reflect-padded by one pixel, mag = sqrt(gx^2 + gy^2), the
   direction from atan2(gy, gx + 1e-6) in degrees, bucketed as
   ``non_max_suppression`` does; the output is the NMS magnitude
-  ``mag * keep``. Its double threshold and hysteresis stay in PyTorch.
+  ``mag * keep``.
 
-``fused_canny`` launches the kernel on a CUDA tensor and counts the launch
-in ``LAUNCHES``; on a CPU tensor it runs the plain twin
+The hysteresis behind mode ``improve`` runs in a second kernel of the same
+source, ``hysteresis``: the double threshold of the NMS magnitude and the
+fixpoint ``strong |= dilate(strong) & weak`` in one cooperative launch that
+loops on a device flag (the counterpart of the JAX package's
+``lax.while_loop``), writing the {0, 1} map in the caller's dtype. No host
+read: the round count stays on the card.
+
+``fused_canny`` and ``hysteresis`` launch their kernels on a CUDA tensor and
+count each launch in ``LAUNCHES``; on a CPU tensor they run the plain twins
 ``fused_canny_reference``, which follows the kernel step by step with torch
-ops (zero-fill shifts, no convolutions). A CUDA tensor never takes the twin.
+ops (zero-fill shifts, no convolutions), and ``hysteresis_reference``, the
+loop to the fixpoint. A CUDA tensor never takes a twin.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +48,7 @@ _TAN67 = float(np.tan(np.deg2rad(67.5)))
 ANGLE_EPS = 1e-6  # canny_edge_improve's atan2 stabiliser (ops/edge.py)
 
 # Kernel launches since the last reset (twin calls are not launches).
-LAUNCHES: Dict[str, int] = {"fused_canny": 0}
+LAUNCHES: Dict[str, int] = {"fused_canny": 0, "hysteresis": 0}
 
 
 def reset_launches() -> None:
@@ -61,6 +70,13 @@ def g5(sigma: float) -> np.ndarray:
     (``edge_pallas._g5``): g = K[2, :] / sqrt(K[2, 2])."""
     k2 = gaussian_kernel(5, sigma)
     return (k2[2, :] / np.sqrt(k2[2, 2])).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def taps(sigma: float) -> Tuple[float, ...]:
+    """``g5(sigma)`` as Python floats, computed once per sigma: the kernel's
+    arguments, so a launch does no numpy work."""
+    return tuple(float(v) for v in g5(sigma))
 
 
 # ------------------------------------------------------------ plain twin
@@ -114,7 +130,7 @@ def fused_canny_reference(x: torch.Tensor, low: float = 0.2, high: float = 0.8,
     outside."""
     _check_mode(mode)
     img = x[..., 0].float()
-    g = [float(v) for v in g5(sigma)]
+    g = taps(float(sigma))
     blur = _blur(img, g)
     gx, gy = _sobel(blur, reflect=mode == "improve")
     if mode == "zero":
@@ -138,6 +154,39 @@ def fused_canny_reference(x: torch.Tensor, low: float = 0.2, high: float = 0.8,
     return (mag * _nms_keep(mag, b0, b45, b90, b135).float())[..., None]
 
 
+def _dilate(s: torch.Tensor) -> torch.Tensor:
+    """3x3 binary dilation of an NHWC bool map, zero outside the image."""
+    x = s.permute(0, 3, 1, 2).to(torch.float32)
+    return F.max_pool2d(x, 3, stride=1, padding=1).permute(0, 2, 3, 1) > 0
+
+
+def hysteresis_fixpoint(strong: torch.Tensor, weak: torch.Tensor, max_iters: int = 0):
+    """``strong |= dilate(strong) & weak`` on NHWC bool maps until nothing
+    changes, or for at most ``max_iters`` steps when that is > 0. Returns
+    (the grown bool map, the number of steps applied). Each step reads one
+    flag back to the host."""
+    s, it = strong, 0
+    while max_iters <= 0 or it < max_iters:
+        nxt = s | (_dilate(s) & weak)
+        if torch.equal(nxt, s):
+            break
+        s, it = nxt, it + 1
+    return s, it
+
+
+def _thresholds(nms: torch.Tensor, low: float, high: float):
+    """(strong, weak) = (nms >= high, low <= nms < high)."""
+    return nms >= high, (nms >= low) & (nms < high)
+
+
+def hysteresis_reference(nms: torch.Tensor, low: float, high: float,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The hysteresis kernel's math with torch ops on an NHWC NMS magnitude:
+    strong = nms >= high, weak = low <= nms < high, grown to the fixpoint;
+    {0, 1} in ``dtype``."""
+    return hysteresis_fixpoint(*_thresholds(nms, low, high))[0].to(dtype)
+
+
 # ----------------------------------------------------------------- wrapper
 
 def _check_mode(mode: str) -> int:
@@ -146,9 +195,13 @@ def _check_mode(mode: str) -> int:
     return MODES[mode]
 
 
-_SIGNATURE = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int] + [ctypes.c_float] * 6 + [ctypes.c_void_p]
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURE = [_I, _P, _P, _I, _I, _I] + [_F] * 6 + [_P]
+_HYST_SIGNATURE = [_I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P]
 SOURCES = ("canny",)  # the csrc/<name>.cu files this wrapper launches
+# The dtypes the hysteresis kernel writes; others are written as float32
+# and converted.
+_EDGE_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _lib():
@@ -157,7 +210,9 @@ def _lib():
     lib = load("canny")
     if not getattr(lib, "_eelunet_typed", False):
         lib.eelunet_fused_canny.argtypes = _SIGNATURE
-        lib.eelunet_fused_canny.restype = ctypes.c_int
+        lib.eelunet_fused_canny.restype = _I
+        lib.eelunet_hysteresis.argtypes = _HYST_SIGNATURE
+        lib.eelunet_hysteresis.restype = _I
         lib._eelunet_typed = True
     return lib
 
@@ -184,11 +239,45 @@ def fused_canny(x: torch.Tensor, low: float = 0.2, high: float = 0.8, sigma: flo
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    g = g5(sigma)
     err = _lib().eelunet_fused_canny(
-        code, x.data_ptr(), out.data_ptr(), n, h, w, *(float(v) for v in g),
+        code, x.data_ptr(), out.data_ptr(), n, h, w, *taps(float(sigma)),
         float(low) ** 2, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_canny: CUDA launch failed with cudaError_t {err}")
     LAUNCHES["fused_canny"] += 1
     return out
+
+
+def hysteresis(nms: torch.Tensor, low: float, high: float,
+               dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The hysteresis kernel on an (N,H,W,1) float32 NMS magnitude: strong =
+    nms >= high, weak = low <= nms < high, grown to the fixpoint. Returns
+    ((N,H,W,1) {0, 1} in ``dtype``, a device int32 scalar tensor holding the
+    rounds the kernel ran; nothing is read back). A CPU tensor runs
+    ``hysteresis_reference`` and returns the plain loop's step count. A
+    cooperative launch the card refuses raises."""
+    if nms.dim() != 4 or nms.shape[-1] != 1:
+        raise ValueError(f"hysteresis: nms must be (N,H,W,1), got {tuple(nms.shape)}")
+    if nms.device.type == "cpu":
+        grown, steps = hysteresis_fixpoint(*_thresholds(nms, low, high))
+        return grown.to(dtype), torch.tensor(steps, dtype=torch.int32)
+    if nms.dtype != torch.float32 or not nms.is_contiguous():
+        raise ValueError(f"hysteresis: nms must be contiguous float32, got {nms.dtype} "
+                         f"strides {nms.stride()}")
+    if nms.numel() > _MAX_ELEMENTS:
+        raise ValueError(f"hysteresis: {nms.numel()} elements exceed the kernel's int32 extents")
+    n, h, w, _ = nms.shape
+    code = _EDGE_DTYPE.get(dtype, 0)
+    out = torch.empty(nms.shape, dtype=dtype if dtype in _EDGE_DTYPE else torch.float32,
+                      device=nms.device)
+    flags = torch.empty(4, dtype=torch.int32, device=nms.device)
+    if nms.numel() == 0:
+        return out.to(dtype), flags[3].zero_()
+    state = torch.empty(nms.shape, dtype=torch.uint8, device=nms.device)
+    err = _lib().eelunet_hysteresis(
+        code, nms.data_ptr(), state.data_ptr(), out.data_ptr(), flags.data_ptr(), n, h, w,
+        float(low), float(high), torch.cuda.current_stream(nms.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hysteresis: CUDA launch failed with cudaError_t {err}")
+    LAUNCHES["hysteresis"] += 1
+    return out.to(dtype), flags[3]

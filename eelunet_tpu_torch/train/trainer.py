@@ -69,6 +69,23 @@ def check_supported(cfg) -> None:
                                   + "; see ROADMAP.md")
 
 
+# Options of the JAX Trainer that the port accepts and does not act on yet
+# (ROADMAP.md), with what the port does instead. ``fit`` names the ones that
+# are set in one line at its start.
+IGNORED_OPTIONS = {
+    "async_checkpoint": "checkpoint writes are synchronous",
+    "donate_buffers": "the eager step donates no buffers",
+    "compile_cache": "nothing is compiled ahead, so there is no cache",
+}
+
+
+def ignored_options(cfg) -> str:
+    """The line naming each option of ``IGNORED_OPTIONS`` that ``cfg`` sets,
+    or "" when none is set."""
+    names = [f"{k} ({why})" for k, why in IGNORED_OPTIONS.items() if getattr(cfg, k)]
+    return "ignored by eelunet_tpu_torch: " + "; ".join(names) if names else ""
+
+
 def make_loss_fn(loss_name: str, loss_cfg, meta) -> Callable:
     """(ModelOutput in NCHW, NHWC labels) -> float32 loss."""
     base = L.LOSS_REGISTRY[loss_name]
@@ -292,6 +309,8 @@ class Trainer:
     def fit(self, train_loader, val_loader, test_loader, state: Optional[TrainState] = None,
             log=print) -> Tuple[TrainState, Dict[str, Any]]:
         cfg = self.cfg
+        if ignored_options(cfg):
+            log(ignored_options(cfg))
         steps_per_epoch = max(len(train_loader), 1)
         if state is None:
             state = self.init_state(steps_per_epoch)

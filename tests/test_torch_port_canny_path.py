@@ -231,4 +231,4 @@ def test_trainer_takes_four_channels_with_the_edge_flag():
     assert trainer.model.enc1.conv0.weight.shape[1] == 4
     assert set(kernel_launches()) == {"highpass_contract", "highpass_expand",
                                       "highpass_bwd_contract", "highpass_bwd_expand",
-                                      "fused_canny", "conv3x3"}
+                                      "fused_canny", "hysteresis", "conv3x3"}

@@ -1,12 +1,13 @@
 """The hand-written CUDA kernels (the four high-pass kernels, the Canny
-stencil and the 3x3 convolution) against their plain PyTorch twins, on the
-card. Every test here needs a CUDA device and skips without one; on
+stencil and its hysteresis, and the 3x3 convolution) against their plain
+PyTorch twins, on the card. Every test here needs a CUDA device and skips without one; on
 the H100 run ``python -m pytest -q tests/test_torch_port_cuda.py`` (this file
 imports no JAX, so it runs where only the port is installed).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -237,7 +238,7 @@ def test_canny_kernel_matches_plain_twin(cuda, shape, mode):
     edge_cuda.reset_launches()
     got = edge_cuda.fused_canny(x, 0.3, mode=mode)
     torch.cuda.synchronize()
-    assert edge_cuda.LAUNCHES == {"fused_canny": 1}
+    assert edge_cuda.LAUNCHES == {"fused_canny": 1, "hysteresis": 0}
     assert got.dtype == torch.float32 and got.shape == x.shape
     want = edge_cuda.fused_canny_reference(x, 0.3, mode=mode)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
@@ -248,17 +249,19 @@ def test_canny_kernel_matches_plain_twin(cuda, shape, mode):
 
 
 def test_canny_ops_launch_the_kernel(cuda):
-    """``canny_edge`` (mode zero) and ``canny_edge_improve`` (mode improve)
-    on a CUDA tensor launch kernel 5 once per channel plane batch, return
-    the input's dtype, and agree with their CPU chains up to ties; the
-    Canny input chain launches it twice per batch."""
+    """``canny_edge`` (mode zero) and ``canny_edge_improve`` (mode improve,
+    then the hysteresis kernel) on a CUDA tensor launch kernel 5 once per
+    channel plane batch, return the input's dtype, and agree with their CPU
+    chains up to ties; the Canny input chain launches each kernel twice per
+    batch."""
     g = torch.Generator(device=cuda).manual_seed(7)
     x = torch.rand((2, 40, 52, 1), generator=g, device=cuda)
     edge_cuda.reset_launches()
     zero = edge.canny_edge(x.to(torch.bfloat16))
     improve = edge.canny_edge_improve(x, 0.3, 0.6)
     torch.cuda.synchronize()
-    assert edge_cuda.LAUNCHES == {"fused_canny": 2} and zero.dtype == torch.bfloat16
+    assert edge_cuda.LAUNCHES == {"fused_canny": 2, "hysteresis": 1}
+    assert zero.dtype == torch.bfloat16
     assert (zero.float().cpu() != edge.canny_edge(x.to(torch.bfloat16).cpu()).float()).float() \
         .mean().item() <= 0.01
     assert (improve.cpu() != edge.canny_edge_improve(x.cpu(), 0.3, 0.6)).float().mean().item() \
@@ -268,12 +271,17 @@ def test_canny_ops_launch_the_kernel(cuda):
     edge_cuda.reset_launches()
     images, _ = make_input_preprocess(cfg.data)(u8, u8[..., :1])
     torch.cuda.synchronize()
-    assert edge_cuda.LAUNCHES == {"fused_canny": 2} and images.shape == (2, 40, 52, 4)
+    assert edge_cuda.LAUNCHES == {"fused_canny": 2, "hysteresis": 2}
+    assert images.shape == (2, 40, 52, 4)
 
 
-# (B, H, W, Cin, Cout): enc1's RGB input, W ragged against the 64-pixel
-# block, Cout not a multiple of the 64-channel block, the decoder widths.
-CONV_CASES = [(2, 16, 24, 3, 32), (1, 33, 70, 64, 64), (2, 8, 64, 128, 64), (1, 5, 7, 16, 80)]
+# (B, H, W, Cin, Cout): enc1's RGB input, the decoder widths, and tiles
+# the image does not fill (16 rows in bf16, 8 in float32, x 32 columns):
+# H and W multiples of neither, Cin that leaves a 16-channel chunk ragged
+# (3, 8, 24) or a 16-byte piece of it (3), Cout not a multiple of the
+# 64-channel block (16, 80).
+CONV_CASES = [(2, 16, 24, 3, 32), (1, 33, 70, 64, 64), (2, 8, 64, 128, 64), (1, 5, 7, 16, 80),
+              (1, 37, 45, 8, 16), (2, 21, 50, 24, 80), (1, 19, 33, 3, 80)]
 
 
 @pytest.mark.parametrize("affine,relu", [(False, False), (True, True)])
@@ -295,3 +303,110 @@ def test_conv3x3_kernel_matches_plain_twin(cuda, case, dtype, tol, affine, relu)
     assert got.dtype == dtype and got.shape == (b, h, w, cout)
     want = conv_cuda.conv3x3_reference(x, wt, scale, shift, relu=relu)
     assert _rel_l2(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", [(1, 37, 45, 8, 16), (2, 21, 50, 24, 80), (1, 17, 40, 64, 64)])
+def test_conv3x3_kernel_misaligned(cuda, case, dtype, tol):
+    """Kernel 6 on x, w and shift one element past an aligned start: no
+    16-byte copy is aligned, so every piece goes element by element."""
+    b, h, w, cin, cout = case
+    x = _offset_copy(_x((b, h, w, cin), dtype, cuda, seed=cin))
+    wt = _offset_copy((_x((3, 3, cin, cout), torch.float32, cuda, seed=cout) * 0.1).to(dtype))
+    shift = _offset_copy(_x((cout,), torch.float32, cuda, seed=2))
+    conv_cuda.reset_launches()
+    got = conv_cuda.conv3x3(x, wt, None, shift, relu=True)
+    torch.cuda.synchronize()
+    assert conv_cuda.LAUNCHES == {"conv3x3": 1}
+    want = conv_cuda.conv3x3_reference(x, wt, None, shift, relu=True)
+    assert got.dtype == dtype and _rel_l2(got, want) <= tol
+
+
+def _serpentine(h, w, device, pitch=4):
+    """A (1,H,W,1) NMS-like map: a weak path (0.5) winding along every
+    ``pitch``-th row across many 32x32 tiles, one strong pixel (1.0) at its
+    start (as tests/torch_port_helpers.serpentine)."""
+    m = np.zeros((h, w), np.float32)
+    rows = list(range(1, h - 1, pitch))
+    for k, r in enumerate(rows):
+        m[r, 1:w - 1] = 0.5
+        if k + 1 < len(rows):
+            c = w - 2 if k % 2 == 0 else 1
+            m[r:rows[k + 1] + 1, c] = 0.5
+    m[rows[0], 1] = 1.0
+    return torch.from_numpy(m[None, :, :, None]).to(device)
+
+
+# (N, H, W): one pixel, a single ragged tile, tiles ragged on both axes,
+# several images, the Canny path's width.
+HYST_SHAPES = [(1, 1, 1), (1, 5, 7), (2, 45, 38), (3, 70, 100), (1, 64, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", HYST_SHAPES)
+def test_hysteresis_kernel_equals_the_fixpoint(cuda, shape, dtype):
+    """The hysteresis kernel against the plain loop ``hysteresis_fixpoint``
+    bit for bit, on random maps whose weak clusters cross tile edges; its
+    round count stays on the card until read here."""
+    n, h, w = shape
+    g = torch.Generator(device=cuda).manual_seed(n * h + w)
+    m = torch.rand((n, h, w, 1), generator=g, device=cuda)
+    for low, high in ((0.45, 0.97), (0.3, 0.6)):
+        edge_cuda.reset_launches()
+        got, rounds = edge_cuda.hysteresis(m, low, high, dtype)
+        torch.cuda.synchronize()
+        assert edge_cuda.LAUNCHES == {"fused_canny": 0, "hysteresis": 1}
+        want = edge_cuda.hysteresis_reference(m, low, high, dtype)
+        assert got.dtype == dtype and got.shape == m.shape
+        assert torch.equal(got, want) and int(rounds.item()) >= 1
+
+
+def test_hysteresis_kernel_on_the_serpentine(cuda):
+    """A weak path of 2542 pixels winding through 10 tiles, across their
+    edges about 80 times: the plain loop takes a step per pixel, the kernel
+    a round per crossing at most."""
+    m = _serpentine(64, 160, cuda)
+    got, rounds = edge_cuda.hysteresis(m, 0.25, 0.75)
+    want, steps = edge_cuda.hysteresis_fixpoint(m >= 0.75, (m >= 0.25) & (m < 0.75))
+    assert torch.equal(got, want.float()) and bool((got == (m > 0).float()).all())
+    assert steps > 1000 and 1 <= int(rounds.item()) <= steps
+
+
+def test_hysteresis_kernel_at_the_canny_site(cuda):
+    """At the Canny path's site, (8,512,512,1), on kernel 5's NMS output of
+    seeded blob images at the chain's thresholds; and ``canny_edge_improve``
+    there makes no host read (sync-debug "error" raises on one)."""
+    from eelunet_tpu_torch.data.synthetic import make_blob_sample
+
+    rng = np.random.default_rng(0)
+    imgs = np.stack([make_blob_sample(rng, 512, 512)[0] for _ in range(8)])
+    gray = edge.rgb_to_grayscale(torch.from_numpy(imgs).to(cuda).float()).contiguous()
+    nms = edge_cuda.fused_canny(gray, mode="improve")
+    lo, hi = 100.0 / 255.0, 200.0 / 255.0
+    got, rounds = edge_cuda.hysteresis(nms, lo, hi)
+    want, steps = edge_cuda.hysteresis_fixpoint(nms >= hi, (nms >= lo) & (nms < hi))
+    assert torch.equal(got, want.float()) and got.sum().item() > 0
+    torch.cuda.synchronize()
+    edge_cuda.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        edges = edge.canny_edge_improve(gray, lo, hi)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert edge_cuda.LAUNCHES == {"fused_canny": 1, "hysteresis": 1}
+    assert torch.equal(edges, got)
+
+
+def test_hysteresis_thresholding_on_the_card(cuda):
+    """``hysteresis_thresholding`` on CUDA maps: to the fixpoint through the
+    kernel, capped by exactly ``max_iters`` plain steps; both equal the
+    plain loop on the same maps."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    u = torch.rand((2, 70, 100, 2), generator=g, device=cuda)
+    strong, weak = (u > 0.97).float(), (u > 0.45).float()
+    for max_iters in (0, 1, 3):
+        edge_cuda.reset_launches()
+        got = edge.hysteresis_thresholding(strong, weak, max_iters)
+        assert edge_cuda.LAUNCHES["hysteresis"] == (1 if max_iters == 0 else 0)
+        want, _ = edge_cuda.hysteresis_fixpoint(strong > 0.5, weak > 0.5, max_iters)
+        assert got.dtype == strong.dtype and torch.equal(got, want.float())

@@ -14,6 +14,9 @@ JAX package on the same numpy inputs.
 - Kernel 6's twin (``ops/conv_cuda.conv3x3_reference``) against JAX
   ``conv3x3_pallas(..., interpret=True)`` with ``tests/test_conv_pallas.py``'s
   tolerances.
+- The hysteresis kernel's algorithm (rounds over 32x32 tiles, each grown to
+  a local fixpoint from a 1-pixel halo), emulated, exactly against JAX
+  ``hysteresis_thresholding``; kernel 5's tap cache.
 
 The CUDA kernels themselves run in ``tests/test_torch_port_cuda.py``.
 """
@@ -28,8 +31,9 @@ import torch
 from eelunet_tpu.ops import edge as jedge
 from eelunet_tpu.ops import enhance as jenh
 from eelunet_tpu.ops.conv_pallas import conv3x3_pallas
-from eelunet_tpu.ops.edge_pallas import fused_canny_auto
+from eelunet_tpu.ops.edge_pallas import _g5, fused_canny_auto
 from eelunet_tpu_torch.ops import conv_cuda, edge, edge_cuda, enhance
+from torch_port_helpers import hysteresis_tiled_emulated, serpentine
 
 
 def _disk(h, w, cy, cx, r):
@@ -112,7 +116,7 @@ def test_fused_canny_wrapper_runs_the_twin_on_the_cpu():
         got = edge_cuda.fused_canny(_t(x), 0.3, 0.8, 1.2, mode=mode)
         want = edge_cuda.fused_canny_reference(_t(x), 0.3, 0.8, 1.2, mode=mode)
         assert torch.equal(got, want)
-    assert edge_cuda.LAUNCHES == {"fused_canny": 0}
+    assert edge_cuda.LAUNCHES == {"fused_canny": 0, "hysteresis": 0}
     np.testing.assert_array_equal(
         edge_cuda.fused_canny(_t(x), 0.3, sigma=1.2).numpy(),
         _j(fused_canny_auto(jnp.asarray(x), low_threshold=0.3, gaussian_sigma=1.2)))
@@ -163,6 +167,84 @@ def test_hysteresis_matches_jax_exactly(max_iters):
     assert steps == max_iters if max_iters else steps > 3
     if max_iters == 0:  # at the fixpoint one more step changes nothing
         assert torch.equal(grown, grown | (edge._dilate(grown) & (_t(weak) > 0.5)))
+
+
+def _levels(strong, weak):
+    """An NMS-like map from bool maps: 1.0 strong, 0.5 weak, 0 off, to be
+    thresholded at low 0.25, high 0.75."""
+    return np.where(strong, 1.0, np.where(weak, 0.5, 0.0)).astype(np.float32)
+
+
+def _hysteresis_maps():
+    rng = np.random.default_rng(11)
+    u = rng.uniform(size=(2, 70, 100, 1))
+    return {
+        # strong seeds in weak clusters that cross tile edges
+        "random": _levels(u > 0.97, u > 0.45),
+        "serpentine": serpentine(64, 160),
+        "no_strong": _levels(u > 2.0, u > 0.3),
+        "all_weak": _levels(np.zeros_like(u, bool), np.ones_like(u, bool)),
+        "all_weak_one_strong": _levels(np.pad(np.ones((2, 1, 1, 1), bool),
+                                              ((0, 0), (0, 69), (0, 99), (0, 0))),
+                                       np.ones_like(u, bool)),
+    }
+
+
+@pytest.mark.parametrize("schedule", ["snapshot", "in_order"])
+@pytest.mark.parametrize("name", ["random", "serpentine", "no_strong", "all_weak",
+                                  "all_weak_one_strong"])
+def test_hysteresis_tiles_match_jax_exactly(name, schedule):
+    """The hysteresis kernel's rounds over 32x32 tiles reach exactly the
+    fixpoint JAX's while_loop reaches, whichever order the tiles are
+    relaxed in; the serpentine path needs many rounds, each crossing one
+    tile boundary at least."""
+    m = _hysteresis_maps()[name]
+    got, rounds = hysteresis_tiled_emulated(_t(m), 0.25, 0.75, schedule)
+    want = _j(jedge.hysteresis_thresholding(jnp.asarray(m >= 0.75, jnp.float32),
+                                            jnp.asarray((m >= 0.25) & (m < 0.75), jnp.float32)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    plain, steps = edge_cuda.hysteresis(_t(m), 0.25, 0.75)  # the CPU wrapper: the plain loop
+    np.testing.assert_array_equal(plain.numpy(), want)
+    print(f"{name} {schedule}: {rounds} rounds, plain loop {int(steps)} steps, "
+          f"{want.mean():.4f} on")
+    if name == "serpentine":
+        assert want.sum() == (m > 0).sum() and rounds > 10 and int(steps) > 1000
+    if name in ("no_strong", "all_weak"):
+        assert want.sum() == 0 and rounds == 1
+    if name == "all_weak_one_strong":
+        assert want.all()
+
+
+def test_hysteresis_wrapper_on_the_cpu_and_the_thresholding_entry():
+    """On a CPU tensor ``hysteresis`` runs the plain loop (no launch) and
+    returns its step count; ``hysteresis_thresholding`` and
+    ``canny_edge_improve`` keep JAX's exact results there."""
+    m = _hysteresis_maps()["random"]
+    edge_cuda.reset_launches()
+    got, steps = edge_cuda.hysteresis(_t(m), 0.25, 0.75, torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == m.shape and int(steps) > 3
+    assert edge_cuda.LAUNCHES == {"fused_canny": 0, "hysteresis": 0}
+    assert torch.equal(got.float(), edge_cuda.hysteresis_reference(_t(m), 0.25, 0.75))
+    strong, weak = (m >= 0.75).astype(np.float32), ((m >= 0.25) & (m < 0.75)).astype(np.float32)
+    np.testing.assert_array_equal(edge.hysteresis_thresholding(_t(strong), _t(weak)).numpy(),
+                                  got.float().numpy())
+    with pytest.raises(ValueError, match="N,H,W,1"):
+        edge_cuda.hysteresis(_t(m[..., 0]), 0.25, 0.75)
+
+
+def test_kernel5_tap_cache():
+    """The wrapper computes the Gaussian taps once per sigma: the cached
+    taps are JAX's ``_g5`` exactly, and the twin gives the same output
+    from a cold and a warm cache."""
+    x = _t(RANDOM["uniform"](np.random.default_rng(12)))
+    edge_cuda.taps.cache_clear()
+    cold = edge_cuda.fused_canny_reference(x, sigma=1.3, mode="improve")
+    assert edge_cuda.taps.cache_info().misses == 1
+    warm = edge_cuda.fused_canny_reference(x, sigma=1.3, mode="improve")
+    assert edge_cuda.taps.cache_info().hits >= 1 and torch.equal(cold, warm)
+    for sigma in (1.0, 1.3):
+        assert edge_cuda.taps(sigma) == tuple(float(v) for v in _g5(sigma))
+        assert edge_cuda.taps(sigma) == tuple(float(v) for v in edge_cuda.g5(sigma))
 
 
 @pytest.mark.parametrize("field", sorted(RANDOM))

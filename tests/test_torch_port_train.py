@@ -255,3 +255,24 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu():
         Trainer(TrainConfig())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(apply_overrides(TrainConfig(), ["model.out_channels=2"]), device="cpu")
+
+
+def test_trainer_names_the_options_it_ignores(tmp_path):
+    """``async_checkpoint``, ``donate_buffers`` and ``compile_cache`` are
+    accepted and not acted on: ``fit`` says so in one line at its start,
+    naming each one that is set, and says nothing when none is."""
+    base = ["model.name=eelunet", "epochs=0", f"save_dir={tmp_path}/ck",
+            f"log_dir={tmp_path}/runs"]
+    for sets, want in (([], ["async_checkpoint", "donate_buffers", "compile_cache"]),
+                       (["donate_buffers=false", "compile_cache="], ["async_checkpoint"]),
+                       (["async_checkpoint=false", "donate_buffers=false", "compile_cache="],
+                        [])):
+        cfg = apply_overrides(TrainConfig(), base + sets)
+        lines = []
+        Trainer(cfg, device="cpu", widths=NARROW).fit([], [], [], log=lines.append)
+        named = [ln for ln in lines if ln.startswith("ignored by eelunet_tpu_torch: ")]
+        assert len(named) == (1 if want else 0), lines
+        if want:
+            assert lines[0] == named[0]
+            assert [k for k in ("async_checkpoint", "donate_buffers", "compile_cache")
+                    if k in named[0]] == want

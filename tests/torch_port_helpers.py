@@ -10,6 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from eelunet_tpu.config import LossConfig as JaxLossConfig
 from eelunet_tpu.config import OptimizerConfig as JaxOptimizerConfig
@@ -267,3 +268,106 @@ def bwd_contract_split_emulated(x3, g3, ur, ui, sr, si, rebuild_terms=BF16X6):
          + _split_product(a_im, _pieces(u_i, 2), "hk,bhj->bkj", BF16X3))
     k = ur.shape[1]
     return u_r.to(x3.dtype), t[:, :k].contiguous(), (-t[:, k:]).contiguous()
+
+
+# ------------------------------------------------ kernel 6 on the tensor cores
+
+def conv3x3_split_emulated(x, w, scale=None, shift=None, relu=False, terms=BF16X6):
+    """Kernel 6's float32 arithmetic (``conv3x3_kernel_tc<float, 3>``): x
+    and w split into bf16 pieces (``fft_cuda.bf16_split``), the chosen piece
+    products (bf16x6; bf16x3 to show why not) each exact in f32 and summed
+    in f32 (a library conv of the pieces), then ``acc * scale + shift``
+    rounded each, and ReLU. NHWC x, HWIO w; float32 out."""
+    n = 1 + max(max(t) for t in terms)
+    xp = _pieces(x, n)
+    wp = _pieces(w, n)
+    acc = sum(F.conv2d(xp[i].permute(0, 3, 1, 2), wp[j].permute(3, 2, 0, 1), padding=1)
+              for i, j in terms).permute(0, 2, 3, 1)
+    cout = w.shape[3]
+    if scale is not None:
+        acc = acc * scale.float().view(1, 1, 1, cout)
+    if shift is not None:
+        acc = acc + shift.float().view(1, 1, 1, cout)
+    return torch.clamp_min(acc, 0.0) if relu else acc
+
+
+# ------------------------------------------------------- the hysteresis kernel
+
+HYST_TILE = 32  # csrc/canny.cu kHT
+OFF, WEAK, ON = 0, 1, 2
+
+
+def _relax(tiles: torch.Tensor):
+    """A batch of (T+2, T+2) uint8 tiles with their halo grown to the local
+    fixpoint: weak -> on where a neighbour is on, inside the halo only.
+    Returns (the tiles, which of them changed)."""
+    t = tiles.clone()
+    inner = torch.zeros(t.shape[1:], dtype=torch.bool)
+    inner[1:-1, 1:-1] = True
+    while True:
+        near = F.max_pool2d((t == ON).float()[:, None], 3, stride=1, padding=1)[:, 0] > 0
+        grow = (t == WEAK) & near & inner
+        if not grow.any():
+            break
+        t[grow] = ON
+    return t, (t != tiles).flatten(1).any(1)
+
+
+def hysteresis_tiled_emulated(nms: torch.Tensor, low: float, high: float,
+                              schedule: str = "snapshot"):
+    """The hysteresis kernel's algorithm (``hysteresis_kernel`` in
+    ``csrc/canny.cu``) on an (N,H,W,1) NMS magnitude: a uint8 state (2 on:
+    nms >= high; 1 weak: low <= nms < high; 0 off), then rounds over
+    HYST_TILE-square tiles, each loaded with a 1-pixel halo, grown to its
+    local fixpoint and written back, until a round changes nothing.
+    ``snapshot``: every tile reads the state its round began with, the
+    slowest schedule the card's blocks can take; ``in_order``: tiles one
+    after another, each reading what the earlier ones wrote, as a block
+    does that reads a neighbour already written this round. Returns (the
+    {0, 1} float32 map, the rounds run)."""
+    m = nms[..., 0].float()
+    state = torch.where(m >= high, ON, torch.where(m >= low, WEAK, OFF)).to(torch.uint8)
+    n, h, w = state.shape
+    t = HYST_TILE
+    th, tw = -(-h // t), -(-w // t)
+    canvas = torch.zeros((n, th * t + 2, tw * t + 2), dtype=torch.uint8)  # zero halo
+    canvas[:, 1:h + 1, 1:w + 1] = state
+    rounds = 0
+    while True:
+        rounds += 1
+        if schedule == "snapshot":
+            tiles = canvas.unfold(1, t + 2, t).unfold(2, t + 2, t).reshape(-1, t + 2, t + 2)
+            grown, changed = _relax(tiles)
+            inner = grown[:, 1:-1, 1:-1].reshape(n, th, tw, t, t).permute(0, 1, 3, 2, 4)
+            canvas[:, 1:-1, 1:-1] = inner.reshape(n, th * t, tw * t)
+            changed = bool(changed.any())
+        elif schedule == "in_order":
+            changed = False
+            for b in range(n):
+                for i in range(th):
+                    for j in range(tw):
+                        win = canvas[b, i * t:i * t + t + 2, j * t:j * t + t + 2]
+                        grown, ch = _relax(win[None])
+                        if bool(ch[0]):
+                            win[1:-1, 1:-1] = grown[0, 1:-1, 1:-1]
+                            changed = True
+        else:
+            raise ValueError(schedule)
+        if not changed:
+            break
+    return (canvas[:, 1:h + 1, 1:w + 1] == ON).float()[..., None], rounds
+
+
+def serpentine(h: int, w: int, pitch: int = 4) -> np.ndarray:
+    """A (1,H,W,1) NMS-like map: a weak path (0.5) that winds along every
+    ``pitch``-th row and down alternate ends, across many 32x32 tiles, with
+    one strong pixel (1.0) at its start; 0 elsewhere."""
+    m = np.zeros((h, w), np.float32)
+    rows = list(range(1, h - 1, pitch))
+    for k, r in enumerate(rows):
+        m[r, 1:w - 1] = 0.5
+        if k + 1 < len(rows):
+            c = w - 2 if k % 2 == 0 else 1
+            m[r:rows[k + 1] + 1, c] = 0.5
+    m[rows[0], 1] = 1.0
+    return m[None, :, :, None]
