@@ -84,6 +84,21 @@ Phases (any failure exits non-zero; none is skipped):
    best tag: kernel 5 and the hysteresis kernel launch twice per batch in
    both runs, kernels 1-4 as in phase 7, and the evaluation prints the
    metrics the training run recorded for that tag.
+10. The other families, each at its published width from seeded random
+   weights (random BN statistics): ``unet``, ``unet++``, ``unext``,
+   ``unext_s``, ``egeunet`` and ``malunet``. For each, its parameter count
+   against the reference's (U-Net++ printed only); the served forward at
+   512^2 batch 16, bf16, BN folded where the family folds, channels_last:
+   finite, of the right shape, within a printed bound of the same weights
+   in float32 unfolded on the card, and its time by CUDA events; three
+   train steps at 512^2 batch 8, bf16 autocast, on the family's ``auto``
+   loss, after one warm step: finite losses, ms per step, peak memory. No
+   hand-written kernel launches on these paths. Then EGE-UNet through
+   ``cli.train`` with ``data.add_canny_edge`` and ``data.canny_enhance`` for
+   2 epochs on phase 7's tree and ``cli.evaluate`` on its best tag (kernel 5 and the hysteresis
+   twice per batch; the metrics equal the training run's), and UNeXt-S
+   through ``cli.serve`` from an upstream-layout .npz, answering a few
+   requests. The phase prints its time.
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the one before that the hysteresis
@@ -786,8 +801,9 @@ def phase_canny_conv_kernels():
 
 
 def _random_upstream_checkpoint(cfg, path):
-    """Seeded random-init full-width EELUnet with randomised BN statistics,
-    saved in the upstream layout that cli.export_torch --numpy writes."""
+    """Seeded random-init full-width model of ``cfg.name`` with randomised
+    BN statistics, saved in the upstream layout that cli.export_torch
+    --numpy writes."""
     import torch
 
     from eelunet_tpu_torch.inference import random_state_dict
@@ -800,7 +816,7 @@ def _random_upstream_checkpoint(cfg, path):
             sd[k] = 0.5 + torch.rand(v.shape, generator=g)
         elif k.endswith(".running_mean"):
             sd[k] = 0.1 * torch.randn(v.shape, generator=g)
-    np.savez(path, **to_upstream_state_dict(sd))
+    np.savez(path, **to_upstream_state_dict(sd, cfg.name))
     return sd
 
 
@@ -822,14 +838,17 @@ def _npy(arr) -> bytes:
     return buf.getvalue()
 
 
-def phase_serve(ckpt: str, workdir: str):
-    """The main path: the serve CLI in a subprocess. Returns its launches."""
+def phase_serve(ckpt: str, workdir: str, model_type: str = "eelunet", n_singles: int = 24,
+                phase: str = "4"):
+    """The main path: the serve CLI in a subprocess, ``n_singles`` concurrent
+    requests, one batched and one PNG. Returns its launches: 2 per forward
+    of each forward high-pass kernel for the EELUnet, 0 for the others."""
     from PIL import Image
 
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
-    log_path = os.path.join(workdir, "serve.log")
-    cmd = [sys.executable, "-m", "eelunet_tpu_torch.cli.serve", "--model_type", "eelunet",
+    log_path = os.path.join(workdir, f"serve_{model_type}.log")
+    cmd = [sys.executable, "-m", "eelunet_tpu_torch.cli.serve", "--model_type", model_type,
            "--checkpoint", ckpt, "--image_size", "512", "--set", "model.dtype=bfloat16",
            "--max_batch", "16", "--window_ms", "20", "--port", str(port)]
     with open(log_path, "w") as log:
@@ -847,14 +866,14 @@ def phase_serve(ckpt: str, workdir: str):
             except OSError:
                 check(time.monotonic() - t0 < 300, "server did not come up in 300 s")
                 time.sleep(1.0)
-        print(f"[4] server up in {time.monotonic() - t0:.1f} s: {health}", flush=True)
+        print(f"[{phase}] server up in {time.monotonic() - t0:.1f} s: {health}", flush=True)
         check(health["image_size"] == [512, 512], f"healthz: {health}")
         stats0 = json.loads(_http(base + "/v1/stats")[1])
         check(set(stats0["kernel_launches"].values()) == {0},
               f"launch counts before the run: {stats0['kernel_launches']}")
 
         rng = np.random.default_rng(SEED)
-        singles = rng.integers(0, 256, (24, 512, 512, 3), dtype=np.uint8)
+        singles = rng.integers(0, 256, (n_singles, 512, 512, 3), dtype=np.uint8)
         results, errors = [None] * len(singles), []
 
         def one(i):
@@ -896,12 +915,12 @@ def phase_serve(ckpt: str, workdir: str):
 
         stats = json.loads(_http(base + "/v1/stats")[1])
         launches = stats["kernel_launches"]
-        print(f"[4] {stats['requests']} requests in {stats['batches']} forwards, "
+        print(f"[{phase}] {model_type}: {stats['requests']} requests in {stats['batches']} forwards, "
               f"{wall:.2f} s wall; device_ms {stats['device_ms']}; "
               f"latency_ms {stats['latency_ms']}; launches {launches}", flush=True)
         check(stats["requests"] == len(singles) + batch.shape[0] + 1, f"stats: {stats}")
         for name in HIGHPASS:
-            want = 2 * stats["batches"] if name in FWD else 0
+            want = 2 * stats["batches"] if name in FWD and model_type == "eelunet" else 0
             check(launches[name] == want,
                   f"{name}: {launches[name]} launches for {stats['batches']} forwards")
         return launches
@@ -1093,8 +1112,8 @@ def _cli(phase: str, module: str, args):
     return proc.stdout, json.loads(launch_lines[0].split(": ", 1)[1]), wall
 
 
-def _train_args(tree: str, save: str, logs: str):
-    return ["--model_type", "eelunet", "--data_dir", tree, "--image_size", "512",
+def _train_args(tree: str, save: str, logs: str, model_type: str = "eelunet"):
+    return ["--model_type", model_type, "--data_dir", tree, "--image_size", "512",
             "--batch_size", "8", "--set", "model.dtype=bfloat16", "--epochs", "2",
             "--seed", str(SEED), "--save_dir", save, "--log_dir", logs]
 
@@ -1104,15 +1123,15 @@ def _train_args(tree: str, save: str, logs: str):
 CLI_STEPS, CLI_FORWARDS = 2 * 2, 2 * (2 + 1 + 1)
 
 
-def _history(root: str):
+def _history(root: str, name: str = "eelunet"):
     with open(os.path.join(root, "loss_history.json")) as f:
         hist = json.load(f)
     check(len(hist["train_loss"]) == 2 and all(np.isfinite(hist["train_loss"] + hist["val_loss"])),
           f"history: {hist}")
-    with open(os.path.join(root, "eelunet_last", "framework_meta.json")) as f:
+    with open(os.path.join(root, f"{name}_last", "framework_meta.json")) as f:
         check(json.load(f)["epoch"] == 2, "last snapshot epoch")
-    best = os.path.join(root, "eelunet_best.npz")
-    check(os.path.isfile(best) and os.path.isfile(os.path.join(root, "eelunet_last", "state.pt")),
+    best = os.path.join(root, f"{name}_best.npz")
+    check(os.path.isfile(best) and os.path.isfile(os.path.join(root, f"{name}_last", "state.pt")),
           f"checkpoints: {sorted(os.listdir(root))}")
     return hist, best
 
@@ -1271,6 +1290,163 @@ def phase_canny_path(workdir: str, tree: str, plain_step_ms: float):
     return {k: trained[k] + evaluated[k] for k in (*KERNELS, "hysteresis")}
 
 
+# Phase 10: the other families at their published widths (the JAX
+# package's defaults), with their parameter counts in millions
+# (tests/test_models.py:18-25; U-Net++ has none and is printed only).
+FAMILIES = {"unet": 31.03, "unet++": None, "unext": 1.47, "unext_s": 0.25,
+            "egeunet": 0.044, "malunet": 0.178}
+# Served forward (bf16, BN folded where the family folds) against the same
+# weights in float32, unfolded, on the card: the mean |d prob| and the share
+# of pixels whose mask (p > 0.5) differs. With random weights the logits of
+# EGE-UNet and MALUNet reach +-40, and bf16 rounding grows through GHPA's and
+# the attention's products, so single pixels near p = 0.5 move by up to
+# ~0.4, in the JAX package's bf16 model as in the port's
+# (tests/test_torch_port_families_forward.py holds the port's drift to
+# JAX's); the mean and the mask are what a wrong bf16 path moves.
+FAMILY_TOL = {"mean": 1e-2, "mask": 1e-2}
+
+
+def _family_phase(name: str, workdir: str, raw_batches):
+    """One family in-process: parameter count, the served forward against
+    float32 and its time, three timed train steps, no kernel launched."""
+    import dataclasses
+
+    import torch
+
+    from eelunet_tpu_torch.cli.common import kernel_launches
+    from eelunet_tpu_torch.config import ModelConfig, TrainConfig, apply_overrides
+    from eelunet_tpu_torch.data.augment import make_input_preprocess, normalize_imagenet
+    from eelunet_tpu_torch.inference import build_serving_model
+    from eelunet_tpu_torch.nn.layers import nchw
+    from eelunet_tpu_torch.ops import conv_cuda, edge_cuda, fft_cuda
+    from eelunet_tpu_torch.registry import MODEL_REGISTRY, seg_probabilities
+    from eelunet_tpu_torch.train.trainer import Trainer, make_train_step
+
+    def reset():
+        for mod in (fft_cuda, edge_cuda, conv_cuda):
+            mod.reset_launches()
+
+    dev = torch.device("cuda")
+    meta = MODEL_REGISTRY[name]
+    cfg = ModelConfig(name=name, dtype="bfloat16")
+    sd = _random_upstream_checkpoint(cfg, os.path.join(workdir, f"{name}_random.npz"))
+    n_params = sum(v.numel() for k, v in sd.items()
+                   if not k.endswith(("running_mean", "running_var", "num_batches_tracked")))
+    want_m = FAMILIES[name]
+    check(want_m is None or abs(n_params / 1e6 - want_m) < 0.005,
+          f"{name}: {n_params / 1e6:.4f}M parameters, want {want_m}M")
+
+    rng = np.random.default_rng(SEED + 6)
+    u8 = torch.from_numpy(rng.integers(0, 256, (16, 512, 512, 3), dtype=np.uint8)).to(dev)
+    x = nchw(normalize_imagenet(u8.float() / 255.0)).contiguous(memory_format=torch.channels_last)
+    served = build_serving_model(sd, cfg, dev)
+    ref = build_serving_model(sd, dataclasses.replace(cfg, dtype="float32"), dev, fold_bn=False)
+    folded = sum(1 for k in sd if k.endswith("running_mean")) - sum(
+        1 for k in served.state_dict() if k.endswith("running_mean"))
+    xb = x.to(torch.bfloat16)
+    with torch.inference_mode():
+        reset()
+        out = served(xb)
+        torch.cuda.synchronize()
+        launched = kernel_launches()
+        p_bf16 = seg_probabilities(out, meta)
+        p_f32 = seg_probabilities(ref(x), meta)
+        d = (p_bf16 - p_f32).abs()
+        flips = ((p_bf16 > 0.5) != (p_f32 > 0.5)).float().mean().item()
+        aux_ok = len(out.aux) == (5 if name == "egeunet" else 0) and all(
+            bool(torch.isfinite(a).all()) and tuple(a.shape) == (16, 1, 512, 512) for a in out.aux)
+        check(bool(torch.isfinite(p_bf16).all()) and tuple(p_bf16.shape) == (16, 1, 512, 512)
+              and aux_ok, f"{name}: served output {tuple(p_bf16.shape)}")
+        check(d.mean().item() <= FAMILY_TOL["mean"] and flips <= FAMILY_TOL["mask"],
+              f"{name}: bf16 vs float32 mean|d prob| {d.mean().item():.3e}, mask pixels "
+              f"differing {flips:.3e} (bounds {FAMILY_TOL})")
+        check(set(launched.values()) == {0}, f"{name}: kernels launched: {launched}")
+        fwd_ms = cuda_ms(lambda: served(xb), iters=5)
+    del served, ref, out, p_f32, x, xb, u8
+    torch.cuda.empty_cache()
+
+    tcfg = apply_overrides(TrainConfig(), [
+        f"model.name={name}", "model.dtype=bfloat16", "data.image_size=512",
+        "data.batch_size=8", f"seed={SEED}", f"save_dir={workdir}/ckpt_{name}_inproc"])
+    trainer = Trainer(tcfg, device="cuda")
+    state = trainer.init_state(steps_per_epoch=4)
+    step = make_train_step(trainer.loss_fn, trainer.amp_dtype)
+    preprocess = make_input_preprocess(tcfg.data)
+    batches = [preprocess(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+               for a, b in raw_batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    losses = [step(state, *batches[0])[0]]  # warm
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses += [step(state, *batches[i % 2])[0] for i in range(1, 4)]
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 3
+    launched = kernel_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [v.item() for v in losses]
+    check(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+    check(set(launched.values()) == {0}, f"{name}: kernels launched in training: {launched}")
+    print(f"[10] {name}: {n_params / 1e6:.4f}M params (want {want_m}); served 512^2 b16 bf16 "
+          f"({folded} BNs folded): {fwd_ms:.2f} ms/batch ({16e3 / fwd_ms:.1f} img/s), "
+          f"vs float32 unfolded mean|d prob| {d.mean().item():.3e}, mask pixels differing "
+          f"{flips:.3e} (bounds {FAMILY_TOL}), max|d prob| {d.max().item():.3e}; "
+          f"train 512^2 b8 bf16 autocast, {trainer.loss_name}: "
+          f"{step_ms:.2f} ms/step over 3 steps after 1 warm ({8e3 / step_ms:.1f} img/s), "
+          f"losses {[round(v, 4) for v in losses]}, peak {peak:.2f} GiB; kernel launches 0",
+          flush=True)
+    del state, trainer, batches
+    torch.cuda.empty_cache()
+    return {"forward_ms": fwd_ms, "step_ms": step_ms, "peak_gib": peak}
+
+
+def phase_families(workdir: str, tree: str):
+    """The other five families (six models): each in-process, then EGE-UNet
+    through cli.train with both Canny flags (the edge channel among them)
+    and cli.evaluate on its best tag, and UNeXt-S through cli.serve from an
+    upstream-layout .npz.
+    Returns the launches of the two CLI runs of EGE-UNet, summed."""
+    t0 = time.monotonic()
+    raw_batches = _train_batches(2, 8, SEED + 7)
+    for name in FAMILIES:
+        _family_phase(name, workdir, raw_batches)
+
+    # both Canny flags, as phase 9: the edge channel and the enhancement
+    flags = [a for f in CANNY_FLAGS for a in ("--set", f)]
+    save, logs = os.path.join(workdir, "ckpt_ege"), os.path.join(workdir, "runs_ege")
+    _, trained, wall = _cli("10", "train", _train_args(tree, save, logs, "egeunet") + flags)
+    want = {k: 0 for k in (*KERNELS, "hysteresis")}
+    want.update(fused_canny=2 * CLI_FORWARDS, hysteresis=2 * CLI_FORWARDS)
+    check(trained == want, f"EGE-UNet cli.train launches {trained}, want {want}")
+    hist, best = _history(os.path.join(save, "egeunet"), "egeunet")
+    out, evaluated, wall_e = _cli("10", "evaluate", [
+        "--model_type", "egeunet", "--data_dir", tree, "--image_size", "512",
+        "--batch_size", "8", "--set", "model.dtype=bfloat16", "--seed", str(SEED),
+        "--checkpoint", best, *flags])
+    want_e = {k: 0 for k in (*KERNELS, "hysteresis")}
+    want_e.update(fused_canny=2, hysteresis=2)
+    check(evaluated == want_e, f"EGE-UNet cli.evaluate launches {evaluated}, want {want_e}")
+    metrics = json.loads(next(ln for ln in out.splitlines()
+                              if ln.startswith("metrics: ")).split(": ", 1)[1])
+    recorded = hist["metrics"][int(np.argmin(hist["val_loss"]))]
+    print(f"[10] EGE-UNet cli.train with both Canny flags: {wall:.1f} s wall for 2 epochs, "
+          f"launches {trained}; cli.evaluate on its best tag {wall_e:.1f} s wall, launches "
+          f"{evaluated}; metrics vs the training run's max|d| "
+          f"{max(abs(metrics[k] - recorded[k]) for k in recorded):.3e}", flush=True)
+    check(metrics == recorded, f"cli.evaluate {metrics} != the training run's {recorded}")
+
+    from eelunet_tpu_torch.config import ModelConfig
+
+    ckpt = os.path.join(workdir, "unext_s_upstream.npz")
+    _random_upstream_checkpoint(ModelConfig(name="unext_s", dtype="bfloat16"), ckpt)
+    served = phase_serve(ckpt, workdir, model_type="unext_s", n_singles=6, phase="10")
+    check(set(served.values()) == {0}, f"UNeXt-S cli.serve launches {served}")
+    print(f"[10] families phase: {time.monotonic() - t0:.1f} s", flush=True)
+    return {k: trained.get(k, 0) + evaluated.get(k, 0) for k in (*KERNELS, "hysteresis")}
+
+
 def main() -> int:
     import torch
 
@@ -1292,7 +1468,9 @@ def main() -> int:
         step = phase_train(workdir)
         trained, tree = phase_train_cli(workdir)
         canny = phase_canny_path(workdir, tree, step["step_ms"])
-    launches = {k: served.get(k, 0) + trained[k] + canny[k] for k in (*KERNELS, "hysteresis")}
+        families = phase_families(workdir, tree)
+    launches = {k: served.get(k, 0) + trained[k] + canny[k] + families[k]
+                for k in (*KERNELS, "hysteresis")}
     print(f"[8] all phases passed in {time.monotonic() - t0:.1f} s")
     hyst = record.pop("hysteresis")
     print(f"[3c] hysteresis (csrc/canny.cu hysteresis_kernel; the JAX package's lax.while_loop, "

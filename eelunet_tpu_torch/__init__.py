@@ -1,8 +1,10 @@
 """eelunet_tpu_torch — the PyTorch + CUDA port of ``eelunet_tpu``.
 
-It serves the flagship EELUnet (binary, BN folded, bf16 compute), trains
-it (bf16 autocast on f32 weights), with or without the Canny augmentations,
-and evaluates it on an NVIDIA H100. Every kernel that the JAX package writes
+It serves the seven model families of the JAX package (the flagship
+EELUnet, U-Net, U-Net++, UNeXt, UNeXt-S, EGE-UNet and MALUNet; binary, BN
+folded where the family folds, bf16 compute), trains them (bf16 autocast on
+f32 weights), with or without the Canny augmentations, and evaluates them
+on an NVIDIA H100. Every kernel that the JAX package writes
 in Pallas for the TPU is a hand-written CUDA C++ kernel here: the FFT
 high-pass forward and backward (``csrc/highpass.cu``,
 ``csrc/highpass_bwd.cu``), the fused Canny stencil (``csrc/canny.cu``) and

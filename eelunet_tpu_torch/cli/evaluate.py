@@ -29,7 +29,7 @@ from eelunet_tpu_torch.cli.common import (
 from eelunet_tpu_torch.data.pipeline import DataLoader
 
 
-def _load_weights(model, checkpoint: str) -> None:
+def _load_weights(model, checkpoint: str, model_name: str) -> None:
     """Load a best tag (``.npz``/``.pth``, upstream layout) or a full
     snapshot (a ``<name>_epoch_N``/``<name>_last`` directory or its
     ``state.pt``) into ``model``, strictly."""
@@ -42,7 +42,7 @@ def _load_weights(model, checkpoint: str) -> None:
     if checkpoint.endswith(".pt"):
         sd = torch.load(checkpoint, map_location="cpu", weights_only=True)["model"]
     else:
-        sd = load_upstream_checkpoint(checkpoint)
+        sd = load_upstream_checkpoint(checkpoint, model_name)
     model.load_state_dict(sd, strict=True)
 
 
@@ -69,7 +69,7 @@ def main(argv=None):
     trainer = Trainer(cfg, device=args.device)
     state = trainer.init_state()
     if args.checkpoint and os.path.exists(args.checkpoint):
-        _load_weights(state.model, args.checkpoint)
+        _load_weights(state.model, args.checkpoint, trainer.cfg.model.name)
         print(f"Loaded model weights from {args.checkpoint}")
     elif args.checkpoint:
         print(f"Checkpoint not found at {args.checkpoint}. Evaluating untrained model.")

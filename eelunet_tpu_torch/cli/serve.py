@@ -5,9 +5,10 @@
         --checkpoint eelunet.npz --image_size 512 --set model.dtype=bfloat16 \\
         --port 8500 --max_batch 16 --window_ms 5
 
-``--checkpoint`` is an upstream-layout state dict: the ``.npz`` (or ``.pth``)
-that ``python -m eelunet_tpu.cli.export_torch --numpy`` writes from a JAX
-checkpoint, or a reference ``.pth``. Protocol and batching semantics:
+``--checkpoint`` is an upstream-layout state dict of the ``--model_type``
+family (any of the seven): the ``.npz`` (or ``.pth``) that ``python -m
+eelunet_tpu.cli.export_torch --numpy`` writes from a JAX checkpoint, a best
+tag of the port's ``cli.train``, or a reference ``.pth``. Protocol and batching semantics:
 ``eelunet_tpu_torch/serving.py``.
 """
 

@@ -4,10 +4,12 @@ reference train.py:217-319).
     python -m eelunet_tpu_torch.cli.train --model_type eelunet --data_dir D \\
         --image_size 512 --batch_size 8 --set model.dtype=bfloat16
 
-Runs on the CUDA card; ``--device cpu`` is the only way onto the CPU.
-Checkpoints go to ``save_dir/<model>/`` (``train/checkpoint.py``); a best
-tag such as ``checkpoints/eelunet/eelunet_best.npz`` is served with
-``python -m eelunet_tpu_torch.cli.serve --checkpoint`` as it is.
+``--model_type`` takes any of the seven families; each trains on its
+``auto`` loss (``losses.AUTO_LOSS``). Runs on the CUDA card; ``--device
+cpu`` is the only way onto the CPU. Checkpoints go to ``save_dir/<model>/``
+(``train/checkpoint.py``); a best tag such as
+``checkpoints/unext_s/unext_s_best.npz`` is served with ``python -m
+eelunet_tpu_torch.cli.serve --model_type unext_s --checkpoint`` as it is.
 """
 
 from __future__ import annotations

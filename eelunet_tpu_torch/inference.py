@@ -39,14 +39,17 @@ def random_state_dict(model_cfg, seed: int = 0, widths=None):
     return init_weights(model, torch.Generator().manual_seed(seed)).state_dict()
 
 
-def build_serving_model(state_dict, model_cfg, device, fold_bn: bool = True,
+def build_serving_model(state_dict, model_cfg, device, fold_bn: Optional[bool] = None,
                         widths=None) -> torch.nn.Module:
     """An eval-mode model on ``device`` in ``model_cfg.dtype`` and
     channels_last, from an unfolded float32 port ``state_dict``. With
-    ``fold_bn`` the conv-adjacent BNs are folded first (``bnfold.py``)."""
+    ``fold_bn`` the conv-adjacent BNs are folded first (``bnfold.py``);
+    None folds the families that have a fold map (``FOLDABLE_MODELS``)."""
     n_folded = 0
+    if fold_bn is None:
+        fold_bn = model_cfg.name in FOLDABLE_MODELS
     if fold_bn:
-        state_dict, n_folded = fold_bn_eval(state_dict)
+        state_dict, n_folded = fold_bn_eval(state_dict, model_cfg.name)
     model, _ = create_model(model_cfg, bn_folded=n_folded > 0, device="meta", widths=widths)
     model.load_state_dict(state_dict, strict=True, assign=True)
     model = model.to(device=device, dtype=model_dtype(model_cfg),
@@ -70,9 +73,10 @@ class Predictor:
         fold_bn: Any = "auto",
         device=None,
     ):
-        """``checkpoint``: an upstream-layout state dict (``.npz`` from
-        ``python -m eelunet_tpu.cli.export_torch --numpy``, or ``.pth``);
-        None = seeded random init (seed 0).
+        """``checkpoint``: an upstream-layout state dict of the family
+        ``model_cfg.name`` (``.npz`` from ``python -m
+        eelunet_tpu.cli.export_torch --numpy`` or a port best tag, or
+        ``.pth``); None = seeded random init (seed 0).
 
         ``bucket_batches`` pads each batch up to a bucket size (the next
         power of two up to 16, then the next multiple of 16) and slices the
@@ -138,7 +142,7 @@ class Predictor:
     def stage(self, checkpoint: str) -> torch.nn.Module:
         """Phase 1 of a (hot) reload: read, convert and fold a checkpoint
         off the serving path."""
-        return self.stage_state_dict(load_upstream_checkpoint(checkpoint))
+        return self.stage_state_dict(load_upstream_checkpoint(checkpoint, self.model_cfg.name))
 
     def commit(self, staged: torch.nn.Module) -> None:
         """Phase 2: upload the staged model and swap it in. Concurrent

@@ -8,8 +8,10 @@ emulates (``losses.py:19-54``): each log term clamped at -100 in the forward
 and the gradient (p - t) / max(p (1 - p), 1e-12) in the backward, finite at
 p in {0, 1}. So no custom backward is needed here.
 
-Only the binary criteria of the EELUnet are ported; the others raise
-``NotImplementedError`` (``ROADMAP.md``).
+The binary criteria of the seven families' ``auto`` choices are ported
+(``dice``, ``bce``, ``bce_dice``, ``edge_bce_dice``, ``gt_bce_dice``); the
+pyramid variants ``edge_dice``/``edge_bce``, ``focal`` and the multi-class
+family raise ``NotImplementedError`` (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -89,6 +91,22 @@ def edge_bce_dice_loss(
     return main + lambda_edge * ds
 
 
+def gt_bce_dice_loss(
+    aux: Sequence[torch.Tensor],
+    out: torch.Tensor,
+    target: torch.Tensor,
+    wb: float = 1.0,
+    wd: float = 1.0,
+    lambda_edge: float = 1.0,
+) -> torch.Tensor:
+    """The EGE-UNet criterion (Loss.py:76-89): its aux maps are already at
+    full resolution, so each is held to the mask itself, with the
+    deep-supervision weights 0.1..0.5, low to high stage."""
+    main = bce_dice_loss(out, target, wb, wd)
+    ds = sum(w * bce_dice_loss(p, target, wb, wd) for p, w in zip(aux, _DS_WEIGHTS))
+    return main + lambda_edge * ds
+
+
 def _not_ported(name: str) -> Callable:
     def fn(*_args, **_kwargs):
         raise NotImplementedError(f"loss {name!r} is not ported to eelunet_tpu_torch yet; "
@@ -103,10 +121,12 @@ LOSS_REGISTRY: Dict[str, Callable] = {
     "bce_dice": lambda aux, out, t, cfg: bce_dice_loss(out, t, cfg.wb, cfg.wd),
     "edge_bce_dice": lambda aux, out, t, cfg: edge_bce_dice_loss(
         aux, out, t, cfg.wb, cfg.wd, cfg.lambda_edge),
+    "gt_bce_dice": lambda aux, out, t, cfg: gt_bce_dice_loss(
+        aux, out, t, cfg.wb, cfg.wd, cfg.lambda_edge),
 }
-# The JAX package's other criteria: the EGE-UNet and pyramid variants, focal
-# loss and the multi-class family.
-for _name in ("gt_bce_dice", "edge_dice", "edge_bce", "focal", "ce", "mc_dice", "ce_dice",
+# The JAX package's other criteria: the pyramid variants, focal loss and the
+# multi-class family.
+for _name in ("edge_dice", "edge_bce", "focal", "ce", "mc_dice", "ce_dice",
               "edge_ce_dice", "gt_ce_dice"):
     LOSS_REGISTRY[_name] = _not_ported(_name)
 

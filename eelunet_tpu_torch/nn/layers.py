@@ -1,4 +1,4 @@
-"""NCHW layer library (counterpart of ``eelunet_tpu/nn/layers.py:239-338``).
+"""NCHW layer library (counterpart of ``eelunet_tpu/nn/layers.py``).
 
 Modules take NCHW tensors in ``torch.channels_last`` memory format, so the
 NHWC view ``x.permute(0, 2, 3, 1)`` is contiguous and free: the channel-axis
@@ -11,12 +11,13 @@ Submodule names follow the flax module names with a fixed rewrite
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from eelunet_tpu_torch.nn import init as tinit
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -29,7 +30,25 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
+class Float32Params:
+    """Mixin for modules whose own parameters and buffers stay float32 when
+    the module is cast to bf16 or fp16: flax keeps a bf16 model's norm
+    parameters (``param_dtype``) in float32, and normalises with them in
+    float32."""
+
+    def _apply(self, fn, recurse=True):
+        kept = {n: t.data for n, t in (*self.named_parameters(recurse=False),
+                                       *self.named_buffers(recurse=False))
+                if t.dtype == torch.float32}
+        super()._apply(fn, recurse)
+        for n, old in kept.items():
+            t = getattr(self, n)
+            if t.dtype in (torch.bfloat16, torch.float16):
+                t.data = old.to(t.device)
+        return self
+
+
+class BatchNorm2d(Float32Params, nn.BatchNorm2d):
     """``nn.BatchNorm2d(eps=1e-5)`` whose eval-mode affine runs in float32.
 
     flax's BatchNorm in a bf16 model normalises with f32 statistics and casts
@@ -40,7 +59,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``_TorchExactBatchNorm`` (``nn/layers.py:98-206``) emulates: batch
     statistics with the biased variance, running statistics with momentum
     0.1 (flax's 0.9) and the Bessel-corrected variance. Under bf16 autocast
-    it takes a bf16 input with f32 affine and statistics and returns bf16."""
+    it takes a bf16 input with f32 affine and statistics and returns bf16.
+    Cast to bf16, it keeps its parameters and statistics in float32."""
 
     def __init__(self, num_features: int, device=None, dtype=None):
         super().__init__(num_features, eps=1e-5, device=device, dtype=dtype)
@@ -55,9 +75,24 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
-class ChannelLayerNorm(nn.Module):
-    """LayerNorm over the channel axis, eps 1e-6, statistics in float32
-    (``eelunet_tpu/nn/layers.py:239-253``)."""
+class GroupNorm4(Float32Params, nn.GroupNorm):
+    """``nn.GroupNorm(4, c, eps=1e-5)`` computed in float32 whatever the
+    dtype of its input and parameters, cast back to the input's dtype
+    (``eelunet_tpu/nn/layers.py:229-236``: flax normalises in f32 with f32
+    parameters)."""
+
+    def __init__(self, num_channels: int, device=None, dtype=None):
+        super().__init__(4, num_channels, eps=1e-5, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(x.dtype)
+
+
+class ChannelLayerNorm(Float32Params, nn.Module):
+    """LayerNorm over the channel axis, statistics in float32; eps 1e-6
+    (``eelunet_tpu/nn/layers.py:239-253``), 1e-5 for UNeXt's token norms."""
 
     def __init__(self, channels: int, eps: float = 1e-6, device=None, dtype=None):
         super().__init__()
@@ -77,6 +112,13 @@ def conv3x3(cin: int, cout: int, device=None, dtype=None) -> nn.Conv2d:
 
 def conv1x1(cin: int, cout: int, device=None, dtype=None) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 1, device=device, dtype=dtype)
+
+
+def conv_transpose2x2(cin: int, cout: int, device=None, dtype=None) -> nn.ConvTranspose2d:
+    """``TorchConvTranspose`` (``nn/layers.py:68-92``): exact 2x upsampling,
+    weight (cin, cout, 2, 2). The JAX kernel's flipped HWIO layout is the
+    converter's business (``models/convert.py``)."""
+    return nn.ConvTranspose2d(cin, cout, 2, stride=2, device=device, dtype=dtype)
 
 
 def max_pool2d(x: torch.Tensor, k: int = 2) -> torch.Tensor:
@@ -120,18 +162,58 @@ class ConvBlock(nn.Module):
         return F.relu(x)
 
 
+class ConvReLUBlock(nn.Sequential):
+    """conv3x3 ReLU conv3x3 ReLU: ``ConvBlock(use_bn=False)``
+    (``nn/layers.py:309-338``) under the upstream U-Net's names, a
+    Sequential whose convs sit at 0 and 2 (Unet.py:33-40)."""
+
+    def __init__(self, cin: int, features: int, features_mid: Optional[int] = None,
+                 device=None, dtype=None):
+        mid = features_mid or features
+        super().__init__(conv3x3(cin, mid, device, dtype), nn.ReLU(),
+                         conv3x3(mid, features, device, dtype), nn.ReLU())
+
+
+class DropPath(nn.Module):
+    """Stochastic depth (``nn/layers.py:356-369``, timm's DropPath): the
+    identity at rate 0 or in eval mode; otherwise each sample is kept with
+    probability 1 - rate, drawn from ``generator``, and scaled by
+    1 / (1 - rate)."""
+
+    def __init__(self, rate: float = 0.0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        dev = x.device if self.generator is None else self.generator.device
+        mask = torch.rand(shape, generator=self.generator, device=dev).to(x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """PyTorch's default initialisation, drawn from ``generator``.
+    """Initialise ``module``'s weights from ``generator``.
 
-    Conv, transposed conv and Linear layers get ``reset_parameters``' own
-    distributions (kaiming-uniform weights with a=sqrt(5), bias uniform in
-    +-1/sqrt(fan_in)); norms keep their identity init. Returns ``module``."""
+    Conv (1-d and 2-d), transposed conv and Linear layers get PyTorch's
+    default distributions (``reset_parameters``: kaiming-uniform weights
+    with a=sqrt(5), bias uniform in +-1/sqrt(fan_in)), which are the JAX
+    package's ``torch_conv_init`` and ``torch_bias_init``; norms keep their
+    identity init. Then every module with an ``init_(generator)`` method,
+    innermost first, draws its own: the families' schemes of
+    ``nn/init.py`` (kaiming-normal over fan_out, truncated normal, ...).
+    Returns ``module``."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
-            nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5), generator=generator)
+        if not hasattr(m, "init_") and isinstance(
+                m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            tinit.torch_conv_init_(m.weight, generator)
             if m.bias is not None:
-                fan_in, _ = nn.init._calculate_fan_in_and_fan_out(m.weight)
-                bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
-                nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+                tinit.torch_bias_init_(m.bias, m.weight[0].numel(), generator)
+    for m in reversed(list(module.modules())):
+        if hasattr(m, "init_"):
+            m.init_(generator)
     return module

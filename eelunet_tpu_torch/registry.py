@@ -1,8 +1,6 @@
 """Model registry and uniform output contract (counterpart of
-``eelunet_tpu/registry.py:16-168``).
-
-Only the flagship EELUnet is ported so far; the other families raise
-``NotImplementedError`` and are queued in ``ROADMAP.md``.
+``eelunet_tpu/registry.py:16-168``): the seven families of the JAX package,
+each an ``nn.Module`` whose forward takes NCHW and returns a ``ModelOutput``.
 """
 
 from __future__ import annotations
@@ -15,8 +13,10 @@ import torch
 class ModelOutput(NamedTuple):
     """Uniform forward-pass result.
 
-    seg: (B,C,H,W) segmentation map — probabilities if the model applies a
-         final sigmoid (eelunet), logits otherwise.
+    seg: (B,C,H,W) float32 segmentation map: probabilities if the model
+         applies a final sigmoid (eelunet, egeunet, malunet), logits
+         otherwise (unet, unet++, unext, unext_s); ``ModelMeta.seg_is_logits``
+         records which.
     aux: deep-supervision maps, low->high resolution (empty for plain models).
     """
 
@@ -32,11 +32,17 @@ class ModelMeta(NamedTuple):
 
 
 MODEL_REGISTRY: Dict[str, ModelMeta] = {
+    "unet": ModelMeta("unet", True, False, "models/Unet.py:4-98"),
     "eelunet": ModelMeta("eelunet", False, True, "models/EELUnet.py:228-471"),
+    "unet++": ModelMeta("unet++", True, False, "models/UnetPlusPlus.py:6-82 (repaired)"),
+    "egeunet": ModelMeta("egeunet", False, True, "models/egeunet.py:217-391"),
+    "unext": ModelMeta("unext", True, False, "models/unext.py:191-325"),
+    "unext_s": ModelMeta("unext_s", True, False, "models/unext.py:328-462"),
+    "malunet": ModelMeta("malunet", False, False, "models/malunet.py:198-324"),
 }
 
-# Families of the JAX package that the port does not have yet.
-NOT_PORTED = ("unet", "unet++", "egeunet", "unext", "unext_s", "malunet")
+# Families of the JAX package that the port does not have yet: none.
+NOT_PORTED: Tuple[str, ...] = ()
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -64,7 +70,11 @@ def create_model(model_cfg, bn_folded: bool = False, device=None, dtype=None,
     """Instantiate an ``nn.Module`` + metadata from a ModelConfig. The
     parameters are made in ``dtype`` (default float32) on ``device``; a model
     that serves in ``model_cfg.dtype`` is cast after its weights are loaded.
-    ``widths``: the EELUnet's per-group channel widths (None = reference)."""
+    Every family takes ``model_cfg.in_channels`` (4 with
+    ``data.add_canny_edge``). ``bn_folded``: built without the BNs that
+    ``bnfold.fold_bn_eval`` folds (eelunet, unext, unext_s; a no-op for the
+    others). ``widths``: the EELUnet's per-group channel widths (None =
+    reference)."""
     name = model_cfg.name
     if name in NOT_PORTED:
         raise NotImplementedError(
@@ -74,18 +84,38 @@ def create_model(model_cfg, bn_folded: bool = False, device=None, dtype=None,
     if getattr(model_cfg, "slim_init", ""):
         raise NotImplementedError("slim (physically pruned) checkpoints are not ported yet; "
                                   "see ROADMAP.md")
-    from eelunet_tpu_torch.models.eelunet import EELUnet
+    if widths is not None and name != "eelunet":
+        raise ValueError(f"widths= is the EELUnet's; {name!r} takes none")
+    kw = dict(in_channels=model_cfg.in_channels, device=device, dtype=dtype)
+    if name == "eelunet":
+        from eelunet_tpu_torch.models.eelunet import EELUnet
 
-    model = EELUnet(
-        in_channels=model_cfg.in_channels,
-        out_channels=model_cfg.out_channels,
-        mask_range=model_cfg.fft_mask_range,
-        highpass_impl=getattr(model_cfg, "highpass_impl", "auto"),
-        widths=widths,
-        bn_folded=bn_folded,
-        device=device,
-        dtype=dtype,
-    )
+        model = EELUnet(out_channels=model_cfg.out_channels, mask_range=model_cfg.fft_mask_range,
+                        highpass_impl=getattr(model_cfg, "highpass_impl", "auto"),
+                        widths=widths, bn_folded=bn_folded, **kw)
+    elif name == "unet":
+        from eelunet_tpu_torch.models.unet import Unet
+
+        model = Unet(out_channels=model_cfg.out_channels, **kw)
+    elif name == "unet++":
+        from eelunet_tpu_torch.models.unetpp import UnetPlusPlus
+
+        model = UnetPlusPlus(out_channels=model_cfg.out_channels, **kw)
+    elif name == "egeunet":
+        from eelunet_tpu_torch.models.egeunet import EGEUNet
+
+        model = EGEUNet(num_classes=model_cfg.out_channels, c_list=tuple(model_cfg.c_list),
+                        bridge=model_cfg.bridge, gt_ds=model_cfg.gt_ds, **kw)
+    elif name == "malunet":
+        from eelunet_tpu_torch.models.malunet import MALUNet
+
+        model = MALUNet(num_classes=model_cfg.out_channels, c_list=tuple(model_cfg.c_list),
+                        split_att=model_cfg.split_att, bridge=model_cfg.bridge, **kw)
+    else:  # unext / unext_s
+        from eelunet_tpu_torch.models.unext import UNext, UNextS
+
+        cls = UNext if name == "unext" else UNextS
+        model = cls(num_classes=model_cfg.out_channels, bn_folded=bn_folded, **kw)
     return model, MODEL_REGISTRY[name]
 
 

@@ -9,9 +9,9 @@ Two tiers, with the JAX package's names under ``save_dir/<name>/``:
   resume reads them (``resume_from=auto`` takes the newest);
 - weights-only tags, ``<name>_best_{iou,dice,miou,mdice,boundary_f1}.npz``,
   ``<name>_best.npz`` (min val loss) and ``<name>_ema.npz``: upstream-layout
-  state dicts (``models/convert.to_upstream_state_dict``), so
-  ``python -m eelunet_tpu_torch.cli.serve --checkpoint <tag>.npz`` serves a
-  tag as it is. Tags written in the same epoch are hard links of one file.
+  state dicts of the family (``models/convert.to_upstream_state_dict``), so
+  ``python -m eelunet_tpu_torch.cli.serve --model_type <name> --checkpoint
+  <tag>.npz`` serves a tag as it is. Tags written in the same epoch are hard links of one file.
 
 Writes are synchronous: ``async_checkpoint`` is accepted and ignored. Each
 file is written under a temporary name and renamed into place.
@@ -86,7 +86,7 @@ class CheckpointManager:
         paths = [self.tag_path(t) + ".npz" for t in tags]
         if not paths:
             return []
-        arrays = to_upstream_state_dict(state_dict)
+        arrays = to_upstream_state_dict(state_dict, self.model_name)
         for i, path in enumerate(paths):
             tmp = path + ".tmp"
             if i == 0:

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (the four high-pass kernels, the Canny
 stencil and its hysteresis, and the 3x3 convolution) against their plain
-PyTorch twins, on the card. Every test here needs a CUDA device and skips without one; on
+PyTorch twins, on the card, and the other model families' forwards on the
+card against the CPU. Every test here needs a CUDA device and skips without one; on
 the H100 run ``python -m pytest -q tests/test_torch_port_cuda.py`` (this file
 imports no JAX, so it runs where only the port is installed).
 """
@@ -410,3 +411,70 @@ def test_hysteresis_thresholding_on_the_card(cuda):
         assert edge_cuda.LAUNCHES["hysteresis"] == (1 if max_iters == 0 else 0)
         want, _ = edge_cuda.hysteresis_fixpoint(strong > 0.5, weak > 0.5, max_iters)
         assert got.dtype == strong.dtype and torch.equal(got, want.float())
+
+
+# ------------------------------------------------ the other model families
+
+FAMILIES = ("unet", "unet++", "unext", "unext_s", "egeunet", "malunet")
+
+
+def _family_state_dict(name):
+    """Seeded random init at full width, BN statistics randomised."""
+    from eelunet_tpu_torch.config import ModelConfig
+    from eelunet_tpu_torch.inference import random_state_dict
+
+    sd = random_state_dict(ModelConfig(name=name), seed=0)
+    g = torch.Generator().manual_seed(1)
+    for k, v in sd.items():
+        if k.endswith(".running_var"):
+            sd[k] = 0.5 + torch.rand(v.shape, generator=g)
+        elif k.endswith(".running_mean"):
+            sd[k] = 0.1 * torch.randn(v.shape, generator=g)
+    return sd
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_forward_on_the_card_matches_the_cpu(cuda, name):
+    """float32 on the card (TF32 off) against the CPU forward of the same
+    weights, seg probabilities and aux maps within 1e-3 (summation order,
+    grown through EGE-UNet's and MALUNet's products); then the served model
+    (BN folded where the family folds, bf16, channels_last) is finite and
+    within chip_smoke.py's bounds of the float32 probabilities: mean
+    |d prob| and the share of mask pixels that differ at most 1e-2. No
+    hand-written kernel runs on these paths."""
+    import dataclasses
+
+    from eelunet_tpu_torch.config import ModelConfig
+    from eelunet_tpu_torch.inference import build_serving_model
+    from eelunet_tpu_torch.nn.layers import nchw
+    from eelunet_tpu_torch.registry import MODEL_REGISTRY, seg_probabilities
+
+    cfg = ModelConfig(name=name)
+    meta = MODEL_REGISTRY[name]
+    sd = _family_state_dict(name)
+    x = nchw(_x((2, 64, 64, 3), torch.float32, cuda, seed=3)).contiguous(
+        memory_format=torch.channels_last)
+    outs = {}
+    fft_cuda.reset_launches()
+    conv_cuda.reset_launches()
+    edge_cuda.reset_launches()
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            model = build_serving_model(sd, cfg, dev, fold_bn=False)
+            outs[dev] = model(x.to(dev))
+        served = build_serving_model(sd, dataclasses.replace(cfg, dtype="bfloat16"), cuda)
+        out_bf16 = served(x.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    got, want = outs["cuda"], outs["cpu"]
+    p_got, p_want = seg_probabilities(got, meta), seg_probabilities(want, meta)
+    assert (p_got.cpu() - p_want).abs().max().item() <= 1e-3
+    assert len(got.aux) == len(want.aux)
+    for a, b in zip(got.aux, want.aux):
+        assert (a.cpu() - b).abs().max().item() <= 1e-3
+    p_bf16 = seg_probabilities(out_bf16, meta)
+    assert out_bf16.seg.dtype == torch.float32 and tuple(p_bf16.shape) == (2, 1, 64, 64)
+    assert bool(torch.isfinite(p_bf16).all())
+    assert (p_bf16 - p_got).abs().mean().item() <= 1e-2
+    assert ((p_bf16 > 0.5) != (p_got > 0.5)).float().mean().item() <= 1e-2
+    assert set(fft_cuda.LAUNCHES.values()) | set(conv_cuda.LAUNCHES.values()) \
+        | set(edge_cuda.LAUNCHES.values()) == {0}

@@ -157,4 +157,4 @@ def test_out_of_scope_options_raise():
     with pytest.raises(NotImplementedError, match="mesh"):
         Predictor(cfg, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Predictor(ModelConfig(name="unet"), device="cpu")
+        Predictor(ModelConfig(name="eelunet", slim_init="slim_dir"), device="cpu")
