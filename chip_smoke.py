@@ -99,6 +99,25 @@ Phases (any failure exits non-zero; none is skipped):
    twice per batch; the metrics equal the training run's), and UNeXt-S
    through ``cli.serve`` from an upstream-layout .npz, answering a few
    requests. The phase prints its time.
+11. Multi-class and the rest of the feed, on a 3-class EELUnet
+   (background and two classes): (11a) its train step in-process at 512^2
+   b8 bf16 on ``edge_ce_dice`` (ms, peak memory, 2 launches per step of
+   kernels 1-4; one step on the kernels against ``lowrank`` at phase 6's
+   bounds, its float32 leaves anchored to the float64 step, see
+   F64_LEAF_SHARE); (11b) ``cli.pack --multiclass`` on a 24/8 synthetic
+   3-class tree, then ``cli.train`` with both Canny flags for 2 epochs on
+   the PNG tree and on the pack with ``data.device_cache`` and
+   ``profile_steps=2``: the first batch of each epoch byte-equal, the
+   per-epoch losses within the spread of two identical streamed fits run
+   in-process (whose every background snapshot must equal the state at its
+   epoch), a trace with CUDA kernel records; (11c) ``cli.evaluate`` with
+   the flags: the training run's metrics, kernel 5 launching, the per-class
+   table; (11d) ``cli.predict``: phase 9's binary tag in resize mode with
+   TTA and both flags, masks equal to ``Predictor.predict`` on the same
+   chain, and the 3-class tag tiled (512, overlap 64) on 700x1000 images,
+   masks of their size with ids in [0, 3), and the throughput of both;
+   (11e) ``cli.serve`` with the 3-class tag, one mask request equal to the
+   Predictor's argmax. Its launches join the JSON line's.
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the one before that the hysteresis
@@ -108,9 +127,11 @@ kernel's (not a TPU kernel's) time, check and launches; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
+import shutil
 import signal
 import socket
 import subprocess
@@ -165,6 +186,14 @@ STEP_TOL = {"float32": (1e-6, 1e-5), "bfloat16": (1e-5, 1e-4)}
 # bfloat16 (b8). The bounds are about 15x and 5x those; a high-pass backward
 # with its sign flipped reads about 2.
 LEAF_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# The 3-class step (phase 11a) amplifies rounding on these leaves more: its
+# float32 kernel and low-rank leaves read 1.23e-3 apart at 512^2 b2 (an H100
+# at 700 W), while the low-rank path's own float32 leaves lie about 2.7e-2
+# from the same step in float64 (CPU, 128^2; 1 and 3 classes alike). Where
+# it is larger, the bound on a leaf there is this share of that float32
+# error, measured in the same run: a kernel difference ten times smaller
+# than the reference path's own rounding; a flipped backward still reads 2.
+F64_LEAF_SHARE = 0.1
 HIGHPASS_LEAVES = ("edge_up2.convt.weight", "edge_up2.bn0.weight",
                    "edge_up1.convt.weight", "edge_up1.bn0.weight")
 KERNELS = {
@@ -838,19 +867,17 @@ def _npy(arr) -> bytes:
     return buf.getvalue()
 
 
-def phase_serve(ckpt: str, workdir: str, model_type: str = "eelunet", n_singles: int = 24,
-                phase: str = "4"):
-    """The main path: the serve CLI in a subprocess, ``n_singles`` concurrent
-    requests, one batched and one PNG. Returns its launches: 2 per forward
-    of each forward high-pass kernel for the EELUnet, 0 for the others."""
-    from PIL import Image
-
+@contextlib.contextmanager
+def _server(ckpt: str, workdir: str, model_type: str, phase: str, extra=()):
+    """``python -m eelunet_tpu_torch.cli.serve`` on ``ckpt`` at 512^2 bf16 in
+    a subprocess; yields its base URL once it answers, its launch counts at
+    0, and stops it on exit."""
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
-    log_path = os.path.join(workdir, f"serve_{model_type}.log")
+    log_path = os.path.join(workdir, f"serve_{model_type}_{phase}.log")
     cmd = [sys.executable, "-m", "eelunet_tpu_torch.cli.serve", "--model_type", model_type,
            "--checkpoint", ckpt, "--image_size", "512", "--set", "model.dtype=bfloat16",
-           "--max_batch", "16", "--window_ms", "20", "--port", str(port)]
+           "--max_batch", "16", "--window_ms", "20", "--port", str(port), *extra]
     with open(log_path, "w") as log:
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
                                 cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -871,7 +898,24 @@ def phase_serve(ckpt: str, workdir: str, model_type: str = "eelunet", n_singles:
         stats0 = json.loads(_http(base + "/v1/stats")[1])
         check(set(stats0["kernel_launches"].values()) == {0},
               f"launch counts before the run: {stats0['kernel_launches']}")
+        yield base
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
 
+
+def phase_serve(ckpt: str, workdir: str, model_type: str = "eelunet", n_singles: int = 24,
+                phase: str = "4"):
+    """The main path: the serve CLI in a subprocess, ``n_singles`` concurrent
+    requests, one batched and one PNG. Returns its launches: 2 per forward
+    of each forward high-pass kernel for the EELUnet, 0 for the others."""
+    from PIL import Image
+
+    with _server(ckpt, workdir, model_type, phase) as base:
         rng = np.random.default_rng(SEED)
         singles = rng.integers(0, 256, (n_singles, 512, 512, 3), dtype=np.uint8)
         results, errors = [None] * len(singles), []
@@ -924,13 +968,6 @@ def phase_serve(ckpt: str, workdir: str, model_type: str = "eelunet", n_singles:
             check(launches[name] == want,
                   f"{name}: {launches[name]} launches for {stats['batches']} forwards")
         return launches
-    finally:
-        proc.send_signal(signal.SIGTERM)
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=60)
 
 
 def phase_model(sd, cfg):
@@ -1000,14 +1037,12 @@ def _train_batches(n_batches: int, batch: int, seed: int):
 def phase_train(workdir: str):
     """In-process training at full width through the port's Trainer and
     train step: launch counts, finite losses, kernels vs low-rank, timing."""
-    import copy
-
     import torch
 
     from eelunet_tpu_torch.config import TrainConfig, apply_overrides
     from eelunet_tpu_torch.data.augment import make_input_preprocess
     from eelunet_tpu_torch.ops import fft_cuda
-    from eelunet_tpu_torch.train.trainer import Trainer, forward_loss, make_train_step
+    from eelunet_tpu_torch.train.trainer import Trainer, make_train_step
 
     dev = torch.device("cuda")
     cfg = apply_overrides(TrainConfig(), [
@@ -1060,37 +1095,73 @@ def phase_train(workdir: str):
           f"{ms_p:.2f} ms/step with highpass_impl=lowrank "
           f"(turns {[round(t, 2) for t in times['lowrank']]})", flush=True)
 
-    for dname, batch in (("float32", 2), ("bfloat16", 8)):
-        amp = torch.bfloat16 if dname == "bfloat16" else None
-        x, y = (t[:batch] for t in batches[0])
-        got = {}
-        for impl in ("auto", "lowrank"):
-            model = copy.deepcopy(state.model).train()
-            model.highpass_impl = impl
-            loss = forward_loss(model, trainer.loss_fn, x, y, amp)
-            loss.backward()
-            gnorm = torch.linalg.vector_norm(
-                torch.stack([torch.linalg.vector_norm(p.grad.float())
-                             for p in model.parameters()]))
-            grads = dict(model.named_parameters())
-            leaves = {n: grads[n].grad.float().clone() for n in HIGHPASS_LEAVES}
-            got[impl] = (loss.item(), gnorm.item(), leaves)
-            del model, loss, grads
-        (lk, gk, leaves_k), (lp, gp, leaves_p) = got["auto"], got["lowrank"]
-        d_loss, d_g = abs(lk - lp) / abs(lp), abs(gk - gp) / gp
-        d_leaf = {n: rel_l2(leaves_k[n], leaves_p[n]) for n in HIGHPASS_LEAVES}
-        tl, tg = STEP_TOL[dname]
-        print(f"[6] {dname} b{batch} one step, kernels vs lowrank: loss {lk:.6f} vs {lp:.6f} "
-              f"(rel {d_loss:.2e}, bound {tl:g}); grad norm {gk:.6f} vs {gp:.6f} "
-              f"(rel {d_g:.2e}, bound {tg:g}); rel-l2 of the leaves behind the high-pass "
-              f"{ {n: f'{e:.2e}' for n, e in d_leaf.items()} } (bound {LEAF_TOL[dname]:g})",
-              flush=True)
-        check(d_loss <= tl and d_g <= tg, f"{dname}: kernel step vs lowrank step too far")
-        check(max(d_leaf.values()) <= LEAF_TOL[dname],
-              f"{dname}: gradient behind the high-pass too far: {d_leaf}")
+    _kernels_vs_lowrank("6", state.model, trainer.loss_fn, batches[0])
     del state, trainer, batches
     torch.cuda.empty_cache()
     return {"step_ms": ms_k, "lowrank_step_ms": ms_p, "peak_gib": peak_gib}
+
+
+def _kernels_vs_lowrank(phase: str, model, loss_fn, batch, f64_anchor: bool = False):
+    """One step's loss, gradient norm and the gradient of the weights behind
+    the high-pass, on the kernels and on ``highpass_impl="lowrank"`` from the
+    same weights and batch: float32 at batch 2, bfloat16 at batch 8, within
+    STEP_TOL and LEAF_TOL. Its launches are a comparison's, not a path's.
+
+    ``f64_anchor``: the float32 leaves are also held to a tenth of the
+    low-rank path's own float32 error on them (against the same step in
+    float64, see F64_LEAF_SHARE), where that is the larger bound."""
+    import copy
+
+    import torch
+
+    from eelunet_tpu_torch.train.trainer import forward_loss
+
+    runs = [("float32", 2, "auto"), ("float32", 2, "lowrank"), ("bfloat16", 8, "auto"),
+            ("bfloat16", 8, "lowrank")]
+    if f64_anchor:
+        runs.insert(2, ("float64", 2, "lowrank"))
+    got = {}
+    for dname, b, impl in runs:
+        amp = torch.bfloat16 if dname == "bfloat16" else None
+        x, y = (t[:b] for t in batch)
+        if dname == "float64":
+            x, y = x.double(), y.double()
+        model_i = copy.deepcopy(model).train()
+        if dname == "float64":
+            model_i = model_i.double()
+        model_i.highpass_impl = impl
+        loss = forward_loss(model_i, loss_fn, x, y, amp)
+        loss.backward()
+        gnorm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(p.grad.double())
+                         for p in model_i.parameters()]))
+        grads = dict(model_i.named_parameters())
+        leaves = {n: grads[n].grad.double().clone() for n in HIGHPASS_LEAVES}
+        got[dname, impl] = (loss.item(), gnorm.item(), leaves)
+        del model_i, loss, grads
+    for dname, b in (("float32", 2), ("bfloat16", 8)):
+        (lk, gk, leaves_k), (lp, gp, leaves_p) = got[dname, "auto"], got[dname, "lowrank"]
+        d_loss, d_g = abs(lk - lp) / abs(lp), abs(gk - gp) / gp
+        d_leaf = {n: rel_l2(leaves_k[n], leaves_p[n]) for n in HIGHPASS_LEAVES}
+        tl, tg = STEP_TOL[dname]
+        bound = dict.fromkeys(HIGHPASS_LEAVES, LEAF_TOL[dname])
+        anchored = ""
+        if dname == "float32" and f64_anchor:
+            own = {n: rel_l2(leaves_p[n], got["float64", "lowrank"][2][n])
+                   for n in HIGHPASS_LEAVES}
+            bound = {n: max(LEAF_TOL[dname], F64_LEAF_SHARE * own[n]) for n in HIGHPASS_LEAVES}
+            anchored = (f"; the low-rank float32 leaves vs float64: "
+                        f"{ {n: f'{e:.2e}' for n, e in own.items()} }, so the bounds are "
+                        f"{ {n: f'{e:.2e}' for n, e in bound.items()} }")
+        print(f"[{phase}] {dname} b{b} one step, kernels vs lowrank: loss {lk:.6f} vs {lp:.6f} "
+              f"(rel {d_loss:.2e}, bound {tl:g}); grad norm {gk:.6f} vs {gp:.6f} "
+              f"(rel {d_g:.2e}, bound {tg:g}); rel-l2 of the leaves behind the high-pass "
+              f"{ {n: f'{e:.2e}' for n, e in d_leaf.items()} } (bound {LEAF_TOL[dname]:g})"
+              f"{anchored}", flush=True)
+        check(d_loss <= tl and d_g <= tg, f"{dname}: kernel step vs lowrank step too far")
+        check(all(d_leaf[n] <= bound[n] for n in HIGHPASS_LEAVES),
+              f"{dname}: gradient behind the high-pass too far: {d_leaf}")
+    torch.cuda.empty_cache()
 
 
 def _cli(phase: str, module: str, args):
@@ -1183,7 +1254,7 @@ def phase_canny_path(workdir: str, tree: str, plain_step_ms: float):
     """The Canny path: the chain under sync-debug "error", in-process step,
     chain and eval timing and the hysteresis kernel's rounds, then cli.train
     and cli.evaluate with both flags. Returns the two runs' launches,
-    summed."""
+    summed, and the run's best tag."""
     import torch
 
     from eelunet_tpu_torch.config import TrainConfig, apply_overrides
@@ -1287,7 +1358,7 @@ def phase_canny_path(workdir: str, tree: str, plain_step_ms: float):
           f"vs the training run's for that tag: max|d| {diff:.3e} (dice {metrics['dice']:.4f}, "
           f"boundary_f1 {metrics['boundary_f1']:.4f})", flush=True)
     check(metrics == recorded, f"cli.evaluate {metrics} != the training run's {recorded}")
-    return {k: trained[k] + evaluated[k] for k in (*KERNELS, "hysteresis")}
+    return {k: trained[k] + evaluated[k] for k in (*KERNELS, "hysteresis")}, best
 
 
 # Phase 10: the other families at their published widths (the JAX
@@ -1447,6 +1518,375 @@ def phase_families(workdir: str, tree: str):
     return {k: trained.get(k, 0) + evaluated.get(k, 0) for k in (*KERNELS, "hysteresis")}
 
 
+# Phase 11: multi-class segmentation (3 classes: background and two) and the
+# rest of the data feed and entry points: the packed, device-cached feed,
+# the traced window, the async checkpoint writer, cli.predict.
+CLASSES = 3
+MC_FLAGS = ("--set", f"model.out_channels={CLASSES}")
+
+
+def _state_equal(a, b) -> bool:
+    """Nested state dicts equal, tensors bit for bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_state_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_state_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _host_copy(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
+
+
+def _mc_batches(n_batches: int, batch: int, seed: int):
+    """Seeded 3-class (uint8 image, uint8 id mask) batches at 512^2, NHWC."""
+    from eelunet_tpu_torch.data.synthetic import make_multiclass_sample
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        pairs = [make_multiclass_sample(rng, 512, 512, CLASSES) for _ in range(batch)]
+        out.append((np.stack([(p[0] * 255).astype(np.uint8) for p in pairs]),
+                    np.stack([p[1].astype(np.uint8) for p in pairs])))
+    return out
+
+
+def _multiclass_step(workdir: str):
+    """11a: the 3-class EELUnet's train step in-process at 512^2 b8 bf16 on
+    ``edge_ce_dice``: launches, ms, peak memory, kernels vs lowrank. Returns
+    (the timed steps' launches, an upstream-layout tag of the trained
+    weights, ms per step)."""
+    import torch
+
+    from eelunet_tpu_torch.config import TrainConfig, apply_overrides
+    from eelunet_tpu_torch.data.augment import make_input_preprocess
+    from eelunet_tpu_torch.ops import fft_cuda
+    from eelunet_tpu_torch.train.trainer import Trainer, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = apply_overrides(TrainConfig(), [
+        "model.name=eelunet", f"model.out_channels={CLASSES}", "model.dtype=bfloat16",
+        f"model.fft_mask_range={MASK_RANGE}", "data.image_size=512", "data.batch_size=8",
+        f"seed={SEED}", f"save_dir={workdir}/ckpt_mc_inproc"])
+    trainer = Trainer(cfg, device="cuda")
+    check(trainer.loss_name == "edge_ce_dice", f"criterion {trainer.loss_name}")
+    state = trainer.init_state(steps_per_epoch=4)
+    step = make_train_step(trainer.loss_fn, trainer.amp_dtype)
+    preprocess = make_input_preprocess(cfg.data, CLASSES)
+    batches = [preprocess(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+               for x, y in _mc_batches(2, 8, SEED + 11)]
+    check(set(torch.unique(batches[0][1]).tolist()) <= {0.0, 1.0, 2.0}, "labels are not ids")
+    step(state, *batches[0])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fft_cuda.reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = [step(state, *batches[i % 2])[0] for i in range(3)]
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(fft_cuda.LAUNCHES)
+    ms = start.elapsed_time(end) / 3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [v.item() for v in losses]
+    print(f"[11a] 3-class EELUnet 512^2 b8 bf16 autocast, edge_ce_dice: {ms:.2f} ms/step "
+          f"({8e3 / ms:.1f} img/s) over 3 steps after a warm one; peak memory {peak:.2f} GiB; "
+          f"losses {[round(v, 4) for v in losses]}; launches {launches}", flush=True)
+    check(launches == {k: 6 for k in HIGHPASS}, f"launches over 3 steps: {launches}")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    _kernels_vs_lowrank("11a", state.model, trainer.loss_fn, batches[0], f64_anchor=True)
+    tag = trainer.ckpt.save_weights_tags(["mc"], state.model.state_dict())[0]
+    del state, trainer, batches
+    torch.cuda.empty_cache()
+    return launches, tag, ms
+
+
+def _fit_in_process(cfg, tag: str):
+    """Trainer.fit on ``cfg`` with every epoch's snapshot written by the
+    background writer. Returns the history, and checks each snapshot
+    against the state at the epoch it names: epoch 1's copied while epoch
+    2 updates the live tensors in place, epoch 2's at the end."""
+    from eelunet_tpu_torch.cli.common import build_loaders
+    from eelunet_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, device="cuda")
+    tr, va, te = build_loaders(trainer.cfg, device="cuda")
+    state = trainer.init_state(steps_per_epoch=len(tr))
+    at_epoch = {}
+
+    def log(line):
+        if line.startswith("Epoch ["):
+            at_epoch[int(line[7:line.index("/")])] = _host_copy(state.state_dict())
+
+    state, hist = trainer.fit(tr, va, te, state=state, log=log)
+    import torch
+
+    for epoch, want in at_epoch.items():
+        path = os.path.join(trainer.ckpt.root, f"eelunet_epoch_{epoch}", "state.pt")
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        check(_state_equal(saved, want),
+              f"{tag}: the background snapshot of epoch {epoch} differs from the state then")
+    shutil.rmtree(trainer.ckpt.root)
+    del trainer, state
+    return hist
+
+
+def _multiclass_feed(workdir: str):
+    """11b: cli.pack --multiclass, then cli.train on the PNG tree and on the
+    pack with the device cache and a traced window, both with the Canny
+    flags and the async writer (default); their first batches, losses
+    against the spread of two identical streamed runs, the trace, and the
+    background writer's snapshots. Returns (the CLI runs' launches, the
+    PNG run's best tag and history, the tree)."""
+    import torch
+
+    from eelunet_tpu_torch.cli.common import build_loaders
+    from eelunet_tpu_torch.config import TrainConfig, apply_overrides
+    from eelunet_tpu_torch.data.synthetic import write_synthetic_tree
+
+    t0 = time.monotonic()
+    tree = write_synthetic_tree(os.path.join(workdir, "tree3"), n_train=24, n_test=8,
+                                image_size=(512, 512), seed=SEED + 12, num_classes=CLASSES)
+    packed = os.path.join(workdir, "packed3")
+    _, packed_l, wall_p = _cli("11b", "pack", ["--data_dir", tree, "--out", packed,
+                                               "--image_size", "512", "--multiclass"])
+    check(set(packed_l.values()) == {0}, f"cli.pack launches {packed_l}")
+    flags = [a for f in CANNY_FLAGS for a in ("--set", f)] + list(MC_FLAGS)
+    runs = {}
+    for name, data_dir, extra in (
+            ("png", tree, []),
+            ("packed", packed, ["--set", "data.packed=true", "--set", "data.device_cache=true",
+                                "--set", "profile_steps=2"])):
+        save = os.path.join(workdir, f"ckpt_mc_{name}")
+        logs = os.path.join(workdir, f"runs_mc_{name}")
+        out, launches, wall = _cli("11b", "train",
+                                   _train_args(data_dir, save, logs) + flags + extra)
+        hist, best = _history(os.path.join(save, "eelunet"))
+        epoch_s = [float(ln.rsplit("(", 1)[1].rstrip("s)")) for ln in out.splitlines()
+                   if ln.startswith("Epoch [")]
+        runs[name] = (launches, wall, hist, best, logs, epoch_s)
+    want = {k: 2 * (CLI_FORWARDS if k in FWD else CLI_STEPS) for k in HIGHPASS}
+    want.update(fused_canny=2 * CLI_FORWARDS, hysteresis=2 * CLI_FORWARDS, conv3x3=0)
+    for name, (launches, *_r) in runs.items():
+        check(launches == want, f"3-class cli.train ({name}) launches {launches}, want {want}")
+
+    # The two feeds give the same batches: the first of each epoch, byte for byte.
+    base = ["model.name=eelunet", f"model.out_channels={CLASSES}", "model.dtype=bfloat16",
+            "data.image_size=512", "data.batch_size=8", f"seed={SEED}", *CANNY_FLAGS]
+    streamed = build_loaders(apply_overrides(TrainConfig(), base + [f"data.data_dir={tree}"]))[0]
+    cached = build_loaders(apply_overrides(TrainConfig(), base + [
+        f"data.data_dir={packed}", "data.packed=true", "data.device_cache=true"]),
+        device="cuda")[0]
+    for epoch in (0, 1):
+        streamed.set_epoch(epoch)
+        cached.set_epoch(epoch)
+        (sx, sy), (cx, cy) = next(iter(streamed)), next(iter(cached))
+        check(cx.is_cuda, "the cached batch is not on the card")
+        check(np.array_equal(sx, cx.cpu().numpy()) and np.array_equal(sy, cy.cpu().numpy()),
+              f"epoch {epoch}: the first batches of the two feeds differ")
+    del cached
+    torch.cuda.empty_cache()
+
+    # Run to run: two identical streamed fits in-process (every epoch
+    # snapshotted by the background writer, each snapshot checked).
+    hists = [_fit_in_process(apply_overrides(TrainConfig(), base + [
+        f"data.data_dir={tree}", f"save_dir={workdir}/ckpt_mc_rr{i}",
+        f"log_dir={workdir}/runs_mc_rr{i}", "epochs=2", "snapshot_every=1"]), f"run {i}")
+        for i in (0, 1)]
+
+    def spread(a, b):
+        return max(abs(x - y) / abs(y) for k in ("train_loss", "val_loss")
+                   for x, y in zip(a[k], b[k]))
+
+    rr = spread(*hists)
+    bound = max(4 * rr, 1e-6)
+    d_feed = spread(runs["packed"][2], runs["png"][2])
+    print(f"[11b] 3-class cli.train with both Canny flags, 2 epochs: PNG tree {runs['png'][1]:.1f} s "
+          f"wall (epochs {runs['png'][5]} s), packed + device cache + 2 traced steps "
+          f"{runs['packed'][1]:.1f} s (epochs {runs['packed'][5]} s; cli.pack "
+          f"{wall_p:.1f} s); launches {runs['png'][0]}; per-epoch losses PNG "
+          f"{runs['png'][2]['train_loss']} / {runs['png'][2]['val_loss']}, packed "
+          f"{runs['packed'][2]['train_loss']} / {runs['packed'][2]['val_loss']}: max rel "
+          f"{d_feed:.2e}; two identical streamed runs in-process: max rel {rr:.2e} (bound "
+          f"max(4 x that, 1e-6) = {bound:.2e}); first batches of epochs 1 and 2 byte-equal; the "
+          f"background writer's snapshots equal the state at their epochs", flush=True)
+    check(d_feed <= bound, f"packed feed vs PNG feed {d_feed:.2e} > {bound:.2e}")
+
+    prof = os.path.join(runs["packed"][4], "eelunet", "profile")
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")] \
+        if os.path.isdir(prof) else []
+    check(len(traces) == 1, f"profile directory {prof}: {traces}")
+    with open(os.path.join(prof, traces[0])) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"[11b] trace {traces[0]}: {len(events)} events, {kernels} CUDA kernel records "
+          f"(the traced window is step 1 of epoch 1: an epoch has {CLI_STEPS // 2} steps)",
+          flush=True)
+    check(kernels > 0, "the trace holds no CUDA kernel")
+    print(f"[11b] {time.monotonic() - t0:.1f} s", flush=True)
+    total = {k: runs["png"][0][k] + runs["packed"][0][k] for k in want}
+    return total, runs["png"][3], runs["png"][2], tree
+
+
+def _read_masks(out: str, n: int):
+    from PIL import Image
+
+    line = next(ln for ln in out.splitlines() if ln.startswith("Saved "))
+    out_dir = line.rsplit(" to ", 1)[1]
+    return np.stack([np.asarray(Image.open(os.path.join(out_dir, f"pred_{i}.png")))
+                     for i in range(n)])
+
+
+def phase_multiclass(workdir: str, tree: str, canny_best: str):
+    """Phase 11: the 3-class EELUnet step (11a), the data feed (11b),
+    cli.evaluate with the Canny flags (11c), cli.predict binary (resize,
+    TTA, Canny) and 3-class (tiled) (11d), and cli.serve's class ids (11e).
+    Returns the launches of its paths, summed."""
+    import torch
+    from PIL import Image
+
+    from eelunet_tpu_torch.config import DataConfig, ModelConfig
+    from eelunet_tpu_torch.data.augment import make_input_preprocess
+    from eelunet_tpu_torch.data.synthetic import write_synthetic_tree
+    from eelunet_tpu_torch.inference import Predictor
+
+    t0 = time.monotonic()
+    dev = torch.device("cuda")
+    keys = (*KERNELS, "hysteresis")
+    total = dict.fromkeys(keys, 0)
+    step_l, mc_tag, _ = _multiclass_step(workdir)
+    feed_l, mc_best, mc_hist, tree3 = _multiclass_feed(workdir)
+    for part in (step_l, feed_l):
+        for k, v in part.items():
+            total[k] += v
+
+    # 11c: cli.evaluate of the PNG run's best tag, with the flags it trained with.
+    flags = [a for f in CANNY_FLAGS for a in ("--set", f)] + list(MC_FLAGS)
+    out, evaluated, wall_e = _cli("11c", "evaluate", [
+        "--model_type", "eelunet", "--data_dir", tree3, "--image_size", "512",
+        "--batch_size", "8", "--set", "model.dtype=bfloat16", "--seed", str(SEED),
+        "--checkpoint", mc_best, *flags])
+    want_e = {k: 2 if k in FWD else 0 for k in HIGHPASS}
+    want_e.update(fused_canny=2, hysteresis=2, conv3x3=0)
+    check(evaluated == want_e, f"3-class cli.evaluate launches {evaluated}, want {want_e}")
+    metrics = json.loads(next(ln for ln in out.splitlines()
+                              if ln.startswith("metrics: ")).split(": ", 1)[1])
+    recorded = mc_hist["metrics"][int(np.argmin(mc_hist["val_loss"]))]
+    table = [ln for ln in out.splitlines() if ln.startswith("|")]
+    print(f"[11c] 3-class cli.evaluate {wall_e:.1f} s wall, launches {evaluated}; metrics vs "
+          f"the training run's max|d| {max(abs(metrics[k] - recorded[k]) for k in recorded):.3e} "
+          f"(miou {metrics['miou']:.4f}, mdice {metrics['mdice']:.4f}); per class:", flush=True)
+    for line in table:
+        print(f"[11c]   {line}")
+    check(len(table) == 1 + CLASSES, f"per-class table: {table}")
+    check(metrics == recorded, f"cli.evaluate {metrics} != the training run's {recorded}")
+    for k in keys:
+        total[k] += evaluated[k]
+
+    # 11d: cli.predict. Binary: phase 9's best tag (trained with both Canny
+    # flags) on phase 7's test split, TTA, the chain on the card.
+    test_dir = os.path.join(tree, "test", "images")
+    names = sorted(os.listdir(test_dir))
+    canny = [a for f in CANNY_FLAGS for a in ("--set", f)]
+    out, pred_b, wall_b = _cli("11d", "predict", [
+        "--model_type", "eelunet", "--data_dir", tree, "--image_size", "512",
+        "--batch_size", "16", "--set", "model.dtype=bfloat16", "--set", "tta=true", *canny,
+        "--checkpoint", canny_best, "--results_dir", os.path.join(workdir, "pred_binary")])
+    want_b = {k: 8 if k in FWD else 0 for k in HIGHPASS}  # 4 flips x 2 per forward
+    want_b.update(fused_canny=2, hysteresis=2, conv3x3=0)
+    check(pred_b == want_b, f"binary cli.predict launches {pred_b}, want {want_b}")
+    got = _read_masks(out, len(names))
+    u8 = torch.from_numpy(np.stack([np.asarray(Image.open(os.path.join(test_dir, f))
+                                               .convert("RGB")) for f in names])).to(dev)
+    data = DataConfig(add_canny_edge=True, canny_enhance=True)
+    x, _ = make_input_preprocess(data)(u8, torch.zeros((1, 1, 1, 1), device=dev))
+    ref_pred = Predictor(ModelConfig(name="eelunet", dtype="bfloat16", in_channels=4),
+                         checkpoint=canny_best, tta=True, device="cuda")
+    ref = ref_pred.predict(x)
+    check(got.shape == (len(names), 512, 512) and set(np.unique(got)) <= {0, 255},
+          f"binary masks {got.shape} {np.unique(got)}")
+    check(np.array_equal(got, (ref[..., 0] * 255).astype(np.uint8)),
+          f"binary cli.predict masks differ from Predictor.predict in "
+          f"{int((got != ref[..., 0] * 255).sum())} pixels")
+    t1 = time.perf_counter()
+    for _ in range(3):  # the chain and 4 flipped forwards per batch, then the readback
+        ref_pred.predict(make_input_preprocess(data)(u8, torch.zeros((1, 1, 1, 1),
+                                                                     device=dev))[0])
+    resize_ms = (time.perf_counter() - t1) / 3 * 1e3
+
+    # 3-class, tiled at native size: 700x1000 images take 2 x 3 tiles of 512
+    # (a chunk of 6, padded to the bucket of 8), 5 images.
+    native = (700, 1000)
+    tree_n = write_synthetic_tree(os.path.join(workdir, "tree_native"), n_train=1, n_test=5,
+                                  image_size=native, seed=SEED + 13, num_classes=CLASSES)
+    out, pred_t, wall_t = _cli("11d", "predict", [
+        "--model_type", "eelunet", "--data_dir", tree_n, "--set", "model.dtype=bfloat16",
+        *MC_FLAGS, "--tile", "512", "--tile_overlap", "64", "--checkpoint", mc_tag,
+        "--results_dir", os.path.join(workdir, "pred_tiled")])
+    want_t = {k: 10 if k in FWD else 0 for k in HIGHPASS}  # one forward of 6 tiles per image
+    want_t.update(fused_canny=0, hysteresis=0, conv3x3=0)
+    check(pred_t == want_t, f"tiled cli.predict launches {pred_t}, want {want_t}")
+    masks = _read_masks(out, 5)
+    check(masks.shape == (5, *native) and set(np.unique(masks)) <= set(range(CLASSES)),
+          f"tiled masks {masks.shape} {np.unique(masks)}")
+    first = np.asarray(Image.open(os.path.join(tree_n, "test", "images", "0000.png"))
+                       .convert("RGB"))
+    mc_pred = Predictor(ModelConfig(name="eelunet", dtype="bfloat16", out_channels=CLASSES),
+                        checkpoint=mc_tag, device="cuda")
+    ref_t = mc_pred.predict_tiled(first[None], tile=512, overlap=64)
+    check(np.array_equal(masks[0], ref_t[0, ..., 0].astype(np.uint8)),
+          "tiled cli.predict differs from Predictor.predict_tiled")
+    t1 = time.perf_counter()
+    for _ in range(3):
+        mc_pred.predict_tiled(first[None], tile=512, overlap=64)
+    tiled_ms = (time.perf_counter() - t1) / 3 * 1e3
+    print(f"[11d] cli.predict binary (resize, TTA, both Canny flags, 8 images): {wall_b:.1f} s "
+          f"wall, launches {pred_b}, masks equal to Predictor.predict with the same chain; "
+          f"3-class tiled (512, overlap 64) on 5 images of {native[0]}x{native[1]}: "
+          f"{wall_t:.1f} s wall, launches {pred_t}, ids {sorted(np.unique(masks).tolist())}, "
+          f"the first equal to Predictor.predict_tiled. In-process, host clock to the masks on "
+          f"the host: a batch of 8 with the chain and TTA {resize_ms:.1f} ms "
+          f"({8e3 / resize_ms:.1f} img/s); one {native[0]}x{native[1]} image tiled "
+          f"{tiled_ms:.1f} ms ({1e3 / tiled_ms:.1f} img/s)", flush=True)
+    for part in (pred_b, pred_t):
+        for k in keys:
+            total[k] += part[k]
+
+    # 11e: cli.serve with the 3-class tag, one mask request.
+    with _server(mc_tag, workdir, "eelunet", "11e", extra=MC_FLAGS) as base:
+        img = np.asarray(Image.open(os.path.join(tree3, "test", "images", "0000.png"))
+                         .convert("RGB"))
+        code, body, _ = _http(base + "/v1/predict?output=mask", _npy(img))
+        served = json.loads(_http(base + "/v1/stats")[1])["kernel_launches"]
+    ids = np.load(io.BytesIO(body))
+    want_ids = mc_pred.predict(img[None])
+    check(code == 200 and ids.shape == (1, 512, 512, 1), f"serve mask {code} {ids.shape}")
+    check(np.array_equal(ids, want_ids), "cli.serve class ids differ from the Predictor's")
+    check(served == {"highpass_contract": 2, "highpass_expand": 2, "highpass_bwd_contract": 0,
+                     "highpass_bwd_expand": 0}, f"cli.serve launches {served}")
+    print(f"[11e] 3-class cli.serve: one mask request, ids {sorted(np.unique(ids).tolist())} "
+          f"equal to the Predictor's argmax; launches {served}", flush=True)
+    for k, v in served.items():
+        total[k] += v
+    del mc_pred, ref_pred
+    torch.cuda.empty_cache()
+    print(f"[11] multi-class and predict phase: {time.monotonic() - t0:.1f} s; launches "
+          f"{total}", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1467,9 +1907,10 @@ def main() -> int:
         del sd
         step = phase_train(workdir)
         trained, tree = phase_train_cli(workdir)
-        canny = phase_canny_path(workdir, tree, step["step_ms"])
+        canny, canny_best = phase_canny_path(workdir, tree, step["step_ms"])
         families = phase_families(workdir, tree)
-    launches = {k: served.get(k, 0) + trained[k] + canny[k] + families[k]
+        multiclass = phase_multiclass(workdir, tree, canny_best)
+    launches = {k: served.get(k, 0) + trained[k] + canny[k] + families[k] + multiclass[k]
                 for k in (*KERNELS, "hysteresis")}
     print(f"[8] all phases passed in {time.monotonic() - t0:.1f} s")
     hyst = record.pop("hysteresis")

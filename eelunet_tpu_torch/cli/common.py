@@ -6,7 +6,8 @@ the datasets and loaders of a config (counterpart of
 from __future__ import annotations
 
 import argparse
-from typing import Dict, Tuple
+import os
+from typing import Dict
 
 from eelunet_tpu_torch.config import TrainConfig, apply_overrides, config_from_json
 from eelunet_tpu_torch.data.dataset import SegmentationFolderDataset, train_val_split
@@ -73,19 +74,52 @@ def make_folder_dataset(d, split: str, num_classes: int = 1) -> SegmentationFold
         multiclass=num_classes > 1)
 
 
-def build_loaders(cfg: TrainConfig) -> Tuple[DataLoader, DataLoader, DataLoader]:
+def build_loaders(cfg: TrainConfig, device=None):
     """train/val/test loaders: the reference's 90/10 split of the train dir
     and a separate test dir (train.py:255-265). Only the shuffled train
-    loader drops its remainder; val and test cover every sample."""
+    loader drops its remainder; val and test cover every sample.
+
+    ``data.packed``: ``data_dir`` is a ``cli.pack`` output (memmaps).
+    ``data.device_cache``: the splits are uploaded once to ``device`` (None =
+    "cuda") and each batch is a gather there (``data/device_cache.py``)."""
     d = cfg.data
-    if d.packed or d.device_cache:
-        raise NotImplementedError("data.packed and data.device_cache are not ported to "
-                                  "eelunet_tpu_torch yet; see ROADMAP.md")
     num_classes = cfg.model.out_channels
-    full = make_folder_dataset(d, "train", num_classes)
-    test = make_folder_dataset(d, "test", num_classes)
+    if d.packed:
+        if num_classes > 1 and not d.uint8_feed:
+            raise ValueError(
+                "multi-class packed datasets need data.uint8_feed (default): "
+                "the packed float path applies the binary /255 mask scale, "
+                "while uint8 masks pass class ids through to the device "
+                "preprocess unscaled")
+        if wants_raw_images(d) and not d.uint8_feed:
+            raise ValueError(
+                "add_canny_edge/canny_enhance need raw images; the packed "
+                "float path serves normalized tensors. Enable data.uint8_feed "
+                "(default): packed memmaps are uint8 before normalisation, so "
+                "the device augment chain applies; or use the PNG tree "
+                "(data.packed=false).")
+        from eelunet_tpu_torch.data.packed import PackedDataset
+
+        full, test = (PackedDataset(d.data_dir, split, d.normalize_mean, d.normalize_std,
+                                    as_uint8=d.uint8_feed) for split in ("train", "test"))
+    else:
+        full = make_folder_dataset(d, "train", num_classes)
+        test = make_folder_dataset(d, "test", num_classes)
     seed = cfg.seed if cfg.seed is not None else 0
     tr_idx, va_idx = train_val_split(len(full), d.val_fraction, seed)
+
+    if d.device_cache:
+        from eelunet_tpu_torch.data.device_cache import DeviceCache, DeviceCachedLoader
+        from eelunet_tpu_torch.registry import resolve_device
+
+        dev = resolve_device(device)
+        full_c, test_c = (DeviceCache(ds, d.device_cache_max_gb, dev) for ds in (full, test))
+
+        def mkc(cache, idx, shuffle):
+            return DeviceCachedLoader(cache, d.batch_size, shuffle=shuffle, seed=seed,
+                                      drop_remainder=d.drop_remainder and shuffle, indices=idx)
+
+        return mkc(full_c, tr_idx, True), mkc(full_c, va_idx, False), mkc(test_c, None, False)
 
     def mk(ds, idx, shuffle):
         return DataLoader(ds, d.batch_size, shuffle=shuffle, seed=seed,
@@ -93,6 +127,14 @@ def build_loaders(cfg: TrainConfig) -> Tuple[DataLoader, DataLoader, DataLoader]
                           num_workers=d.num_workers, indices=idx)
 
     return mk(full, tr_idx, True), mk(full, va_idx, False), mk(test, None, False)
+
+
+def refuse_slim(checkpoint: str) -> None:
+    """Raise ``NotImplementedError`` for a slim (physically pruned)
+    checkpoint, which the port cannot load yet."""
+    if checkpoint and os.path.isfile(os.path.join(checkpoint, "widths.json")):
+        raise NotImplementedError("slim (physically pruned) checkpoints are not ported to "
+                                  "eelunet_tpu_torch yet; see ROADMAP.md")
 
 
 def kernel_launches() -> Dict[str, int]:

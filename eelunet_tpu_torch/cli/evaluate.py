@@ -10,8 +10,9 @@ the untrained model (evaluate.py:172-176), and prints the nine metrics.
 (upstream-layout ``.npz``) or a full snapshot (``<name>_last/`` or its
 ``state.pt``). The data flags (``data.add_canny_edge``, ``data.canny_enhance``,
 ``data.uint8_feed``) act as in training: the batches go through the same
-device-side input chain. Runs on the CUDA card; ``--device cpu`` is the only
-way onto the CPU.
+device-side input chain. A multi-class model (``--set model.out_channels=C``,
+masks of class ids) prints the macro metrics, then a per-class table. Runs
+on the CUDA card; ``--device cpu`` is the only way onto the CPU.
 """
 
 from __future__ import annotations
@@ -25,25 +26,11 @@ from eelunet_tpu_torch.cli.common import (
     kernel_launches,
     load_config,
     make_folder_dataset,
+    refuse_slim,
 )
 from eelunet_tpu_torch.data.pipeline import DataLoader
-
-
-def _load_weights(model, checkpoint: str, model_name: str) -> None:
-    """Load a best tag (``.npz``/``.pth``, upstream layout) or a full
-    snapshot (a ``<name>_epoch_N``/``<name>_last`` directory or its
-    ``state.pt``) into ``model``, strictly."""
-    import torch
-
-    from eelunet_tpu_torch.models.convert import load_upstream_checkpoint
-
-    if os.path.isdir(checkpoint):
-        checkpoint = os.path.join(checkpoint, "state.pt")
-    if checkpoint.endswith(".pt"):
-        sd = torch.load(checkpoint, map_location="cpu", weights_only=True)["model"]
-    else:
-        sd = load_upstream_checkpoint(checkpoint, model_name)
-    model.load_state_dict(sd, strict=True)
+from eelunet_tpu_torch.inference import read_checkpoint
+from eelunet_tpu_torch.metrics import MetricAccumMC, per_class_metrics
 
 
 def main(argv=None):
@@ -52,31 +39,27 @@ def main(argv=None):
     p.add_argument("--checkpoint", type=str, default="")
     args = p.parse_args(argv)
     cfg = load_config(args)
-    if args.checkpoint and os.path.isfile(os.path.join(args.checkpoint, "widths.json")):
-        raise NotImplementedError("slim (physically pruned) checkpoints are not ported to "
-                                  "eelunet_tpu_torch yet; see ROADMAP.md")
-    if cfg.model.out_channels > 1:
-        raise NotImplementedError("multi-class evaluation (model.out_channels > 1) is not "
-                                  "ported to eelunet_tpu_torch yet; see ROADMAP.md")
+    refuse_slim(args.checkpoint)
 
     from eelunet_tpu_torch.train.trainer import Trainer
 
+    trainer = Trainer(cfg, device=args.device)  # refuses what is not ported, first
     d = cfg.data
     ds = make_folder_dataset(d, args.split, cfg.model.out_channels)
     # Never drop tail samples: the metrics cover the whole split
     # (the reference's loader drops none either, evaluate.py:147).
     loader = DataLoader(ds, d.batch_size, num_workers=d.num_workers, drop_remainder=False)
-    trainer = Trainer(cfg, device=args.device)
     state = trainer.init_state()
     if args.checkpoint and os.path.exists(args.checkpoint):
-        _load_weights(state.model, args.checkpoint, trainer.cfg.model.name)
+        state.model.load_state_dict(read_checkpoint(args.checkpoint, trainer.cfg.model.name),
+                                    strict=True)
         print(f"Loaded model weights from {args.checkpoint}")
     elif args.checkpoint:
         print(f"Checkpoint not found at {args.checkpoint}. Evaluating untrained model.")
 
     print(f"Evaluation date: {datetime.now().strftime('%Y%m%d_%H%M%S')}")
     print(f"Model: {cfg.model.name}")
-    m = trainer.evaluate(state, loader)
+    m, acc = trainer.evaluate(state, loader, return_accum=True)
     print("Evaluation Metrics:")
     print(f"Pixel Accuracy: {m['pixel_accuracy']:.4f}")
     print(f"Precision: {m['precision']:.4f}")
@@ -87,6 +70,15 @@ def main(argv=None):
     print(f"Mean IoU: {m['miou']:.4f}")
     print(f"Boundary F1 Score: {m['boundary_f1']:.4f}")
     print(f"mDice: {m['mdice']:.4f}")
+    if isinstance(acc, MetricAccumMC):
+        # multi-class: the per-class rows behind the macro scalars
+        pc = per_class_metrics(acc)
+        print("Per-class metrics:")
+        print("| class | IoU | Dice | precision | recall | support |")
+        for c in range(len(pc["iou"])):
+            print(f"| {c} | {pc['iou'][c]:.4f} | {pc['dice'][c]:.4f} | "
+                  f"{pc['precision'][c]:.4f} | {pc['recall'][c]:.4f} | "
+                  f"{int(pc['support'][c])} |")
     # Unrounded, for scripts that compare a run with the training history.
     print("metrics: " + json.dumps(m))
     print("kernel launches: " + json.dumps(kernel_launches()), flush=True)

@@ -55,7 +55,7 @@ def main(argv=None):
     cfg = apply_overrides(cfg, [f"seed={set_seed(cfg.seed)}"])
     print(config_to_json(cfg))
     trainer = Trainer(cfg, device=args.device)
-    train_loader, val_loader, test_loader = build_loaders(cfg)
+    train_loader, val_loader, test_loader = build_loaders(cfg, device=args.device)
     print(f"Device: {trainer.device}; criterion: {trainer.loss_name}; "
           f"{len(train_loader)} steps per epoch", flush=True)
     trainer.fit(train_loader, val_loader, test_loader)

@@ -114,17 +114,19 @@ def make_input_preprocess(data_cfg, num_classes: int = 1):
       255 (binary 0/255 -> {0, 1});
     - float images with the augment chain on: raw [0,1] RGB -> the chain;
     - float images, chain off: already normalised on the host; passed
-      through."""
-    if num_classes > 1:
-        raise NotImplementedError("multi-class masks (model.out_channels > 1) are not ported "
-                                  "yet; see ROADMAP.md")
+      through.
+
+    With ``num_classes > 1`` uint8 labels are class ids: cast to float32
+    without the /255."""
     augment = make_augment_fn(data_cfg)
     mean = tuple(data_cfg.normalize_mean)
     std = tuple(data_cfg.normalize_std)
 
     def preprocess(images: torch.Tensor, labels: torch.Tensor):
         if labels.dtype == torch.uint8:
-            labels = labels.float() / 255.0
+            labels = labels.float()
+            if num_classes == 1:
+                labels = labels / 255.0
         if images.dtype == torch.uint8:
             images = images.float() / 255.0
             images = augment(images) if augment is not None else normalize_imagenet(

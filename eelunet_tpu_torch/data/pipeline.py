@@ -67,7 +67,9 @@ class DataLoader:
                 yield (np.stack([s[0] for s in samples]), np.stack([s[1] for s in samples]))
 
 
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_device(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # already on the device (data/device_cache.py)
+        return a.to(device)
     t = torch.from_numpy(np.ascontiguousarray(a))
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)

@@ -7,6 +7,7 @@ package's layout: (B,H,W,3) images in, (B,H,W,1) out.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -31,6 +32,18 @@ def _probs_to_mask(probs: np.ndarray, threshold: float) -> np.ndarray:
     if probs.shape[-1] > 1:
         return np.argmax(probs, axis=-1)[..., None].astype(np.float32)
     return (probs > threshold).astype(np.float32)
+
+
+def read_checkpoint(path: str, model_name: str):
+    """The port's unfolded ``state_dict`` from a checkpoint of family
+    ``model_name``: an upstream-layout state dict (``.npz`` or ``.pth``,
+    such as a best tag of ``cli.train``), or a full snapshot of the port (a
+    ``<name>_epoch_N``/``<name>_last`` directory or its ``state.pt``)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "state.pt")
+    if path.endswith(".pt"):
+        return torch.load(path, map_location="cpu", weights_only=True)["model"]
+    return load_upstream_checkpoint(path, model_name)
 
 
 def random_state_dict(model_cfg, seed: int = 0, widths=None):
@@ -76,7 +89,8 @@ class Predictor:
         """``checkpoint``: an upstream-layout state dict of the family
         ``model_cfg.name`` (``.npz`` from ``python -m
         eelunet_tpu.cli.export_torch --numpy`` or a port best tag, or
-        ``.pth``); None = seeded random init (seed 0).
+        ``.pth``) or a full snapshot of the port (``read_checkpoint``);
+        None = seeded random init (seed 0).
 
         ``bucket_batches`` pads each batch up to a bucket size (the next
         power of two up to 16, then the next multiple of 16) and slices the
@@ -142,7 +156,7 @@ class Predictor:
     def stage(self, checkpoint: str) -> torch.nn.Module:
         """Phase 1 of a (hot) reload: read, convert and fold a checkpoint
         off the serving path."""
-        return self.stage_state_dict(load_upstream_checkpoint(checkpoint, self.model_cfg.name))
+        return self.stage_state_dict(read_checkpoint(checkpoint, self.model_cfg.name))
 
     def commit(self, staged: torch.nn.Module) -> None:
         """Phase 2: upload the staged model and swap it in. Concurrent
@@ -176,20 +190,30 @@ class Predictor:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def _dispatch(self, images: np.ndarray, threshold: Optional[float] = None):
+    def _dispatch(self, images, threshold: Optional[float] = None):
         """Pad to the batch bucket, upload and enqueue the forward. Returns
         ``(device_out, b)`` without waiting for the device: the caller can
-        dispatch the next batch before collecting this one."""
-        images = np.asarray(images)
+        dispatch the next batch before collecting this one. ``images`` is a
+        numpy array, or a tensor (already on the device: ``cli.predict``
+        feeds the output of the device-side input chain)."""
+        on_device = isinstance(images, torch.Tensor)
+        if not on_device:
+            images = np.asarray(images)
         b = int(images.shape[0])
         target = b
         if self.bucket_batches and b > 0:
             target = 1 << (b - 1).bit_length() if b <= 16 else -(-b // 16) * 16
-        if target != b:
-            pad = np.zeros((target - b, *images.shape[1:]), dtype=images.dtype)
-            images = np.concatenate([images, pad], axis=0)
         with torch.inference_mode():
-            probs = self._probs(self._upload(images))
+            if on_device:
+                x = images.to(self.device)
+                if target != b:
+                    x = torch.cat([x, x.new_zeros((target - b, *x.shape[1:]))])
+            else:
+                if target != b:
+                    pad = np.zeros((target - b, *images.shape[1:]), dtype=images.dtype)
+                    images = np.concatenate([images, pad], axis=0)
+                x = self._upload(images)
+            probs = self._probs(x)
             if threshold is not None:  # mask program: 1 byte/pixel on the wire
                 if self.out_channels > 1:
                     out = probs.argmax(dim=-1, keepdim=True).to(torch.uint8)

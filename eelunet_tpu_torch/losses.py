@@ -8,10 +8,9 @@ emulates (``losses.py:19-54``): each log term clamped at -100 in the forward
 and the gradient (p - t) / max(p (1 - p), 1e-12) in the backward, finite at
 p in {0, 1}. So no custom backward is needed here.
 
-The binary criteria of the seven families' ``auto`` choices are ported
-(``dice``, ``bce``, ``bce_dice``, ``edge_bce_dice``, ``gt_bce_dice``); the
-pyramid variants ``edge_dice``/``edge_bce``, ``focal`` and the multi-class
-family raise ``NotImplementedError`` (``ROADMAP.md``).
+Every criterion of the JAX package's ``LOSS_REGISTRY`` is here: the binary
+family and, for ``model.out_channels > 1``, the multi-class family on
+softmax probabilities and class-id targets.
 """
 
 from __future__ import annotations
@@ -107,12 +106,104 @@ def gt_bce_dice_loss(
     return main + lambda_edge * ds
 
 
-def _not_ported(name: str) -> Callable:
-    def fn(*_args, **_kwargs):
-        raise NotImplementedError(f"loss {name!r} is not ported to eelunet_tpu_torch yet; "
-                                  "see ROADMAP.md")
+def edge_dice_loss(aux, out, target, lambda_edge: float = 1.0) -> torch.Tensor:
+    """Dice-only pyramid variant (Loss.py:115-135)."""
+    main = dice_loss(out, target)
+    targets = _pyramid_targets(target)
+    ds = sum(w * dice_loss(p, t) for p, t, w in zip(aux, targets, _DS_WEIGHTS))
+    return main + lambda_edge * ds
 
-    return fn
+
+def edge_bce_loss(aux, out, target, lambda_edge: float = 1.0) -> torch.Tensor:
+    """BCE-only pyramid variant (Loss.py:137-157)."""
+    main = bce_loss(out, target)
+    targets = _pyramid_targets(target)
+    ds = sum(w * bce_loss(p, t) for p, t, w in zip(aux, targets, _DS_WEIGHTS))
+    return main + lambda_edge * ds
+
+
+def focal_loss(pred: torch.Tensor, target: torch.Tensor, alpha: float = 0.25,
+               gamma: float = 2.0) -> torch.Tensor:
+    """Focal loss on probabilities (Loss.py:197-219), its BCE term with
+    ``F.binary_cross_entropy``'s semantics (Loss.py:211); a NaN probability
+    gives a NaN loss, as in ``bce_loss``."""
+    p = pred.float()
+    t = target.float()
+    nan = torch.isnan(p)
+    bce = F.binary_cross_entropy(torch.where(nan, 0.5, p), t, reduction="none")
+    pt = torch.where(t == 1.0, p, 1.0 - p)
+    return torch.mean(alpha * (1.0 - pt) ** gamma * torch.where(nan, torch.nan, bce))
+
+
+# Multi-class criteria (model.out_channels > 1), as in the JAX package:
+# probabilities from the softmax head, NHWC (B,H,W,C); targets (B,H,W,1)
+# class ids in [0, C).
+_PROB_EPS = 1e-7
+_LOG_CLAMP = -100.0
+
+
+def _one_hot_target(target: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(B,H,W,1) class ids (float or int) -> (B,H,W,C) one-hot float32. An id
+    outside [0, C) gives a zero row, as ``jax.nn.one_hot`` does
+    (``F.one_hot`` would raise, or assert on the card)."""
+    ids = torch.round(target[..., 0].float()).long()
+    classes = torch.arange(num_classes, device=target.device)
+    return (ids[..., None] == classes).float()
+
+
+def ce_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean categorical cross-entropy on probabilities, -mean log p[true],
+    with p clipped to [1e-7, 1 - 1e-7] so the log and its gradient stay
+    finite at saturation."""
+    p = torch.clamp(pred.float(), _PROB_EPS, 1.0 - _PROB_EPS)
+    onehot = _one_hot_target(target, pred.shape[-1])
+    log_p = torch.clamp(torch.log(p), min=_LOG_CLAMP)
+    return -torch.mean(torch.sum(onehot * log_p, dim=-1))
+
+
+def multiclass_dice_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Macro soft Dice over all classes, background included, smooth=1:
+    ``dice_loss`` per sample and class, averaged over both."""
+    b, c = pred.shape[0], pred.shape[-1]
+    onehot = _one_hot_target(target, c)
+    p = pred.float().reshape(b, -1, c)
+    t = onehot.reshape(b, -1, c)
+    inter = torch.sum(p * t, dim=1)
+    score = (2.0 * inter + 1.0) / (torch.sum(p, dim=1) + torch.sum(t, dim=1) + 1.0)
+    return 1.0 - torch.mean(score)
+
+
+def ce_dice_loss(pred: torch.Tensor, target: torch.Tensor, wb: float = 1.0,
+                 wd: float = 1.0) -> torch.Tensor:
+    """wd*multiclass_dice + wb*ce: the multi-class ``bce_dice_loss``."""
+    return wd * multiclass_dice_loss(pred, target) + wb * ce_loss(pred, target)
+
+
+def _foreground_target(target: torch.Tensor) -> torch.Tensor:
+    """(B,H,W,1) class ids -> the binary foreground (class != 0) map. The
+    EELUnet and EGE-UNet aux heads are one-channel sigmoid maps whatever
+    ``out_channels`` is, so they are held to the foreground."""
+    return (target > 0.5).float()
+
+
+def edge_ce_dice_loss(aux, out, target, wb: float = 1.0, wd: float = 1.0,
+                      lambda_edge: float = 1.0) -> torch.Tensor:
+    """Multi-class EELUnet criterion: ``ce_dice`` on the main head and the
+    binary deep-supervision pyramid on the foreground mask."""
+    main = ce_dice_loss(out, target, wb, wd)
+    targets = _pyramid_targets(_foreground_target(target))
+    ds = sum(w * bce_dice_loss(p, t, wb, wd) for p, t, w in zip(aux, targets, _DS_WEIGHTS))
+    return main + lambda_edge * ds
+
+
+def gt_ce_dice_loss(aux, out, target, wb: float = 1.0, wd: float = 1.0,
+                    lambda_edge: float = 1.0) -> torch.Tensor:
+    """Multi-class EGE-UNet criterion: its full-resolution aux maps are held
+    to the foreground mask."""
+    main = ce_dice_loss(out, target, wb, wd)
+    fg = _foreground_target(target)
+    ds = sum(w * bce_dice_loss(p, fg, wb, wd) for p, w in zip(aux, _DS_WEIGHTS))
+    return main + lambda_edge * ds
 
 
 LOSS_REGISTRY: Dict[str, Callable] = {
@@ -123,12 +214,18 @@ LOSS_REGISTRY: Dict[str, Callable] = {
         aux, out, t, cfg.wb, cfg.wd, cfg.lambda_edge),
     "gt_bce_dice": lambda aux, out, t, cfg: gt_bce_dice_loss(
         aux, out, t, cfg.wb, cfg.wd, cfg.lambda_edge),
+    "edge_dice": lambda aux, out, t, cfg: edge_dice_loss(aux, out, t, cfg.lambda_edge),
+    "edge_bce": lambda aux, out, t, cfg: edge_bce_loss(aux, out, t, cfg.lambda_edge),
+    "focal": lambda aux, out, t, cfg: focal_loss(out, t),
+    # multi-class (model.out_channels > 1; the probabilities are a softmax)
+    "ce": lambda aux, out, t, cfg: ce_loss(out, t),
+    "mc_dice": lambda aux, out, t, cfg: multiclass_dice_loss(out, t),
+    "ce_dice": lambda aux, out, t, cfg: ce_dice_loss(out, t, cfg.wb, cfg.wd),
+    "edge_ce_dice": lambda aux, out, t, cfg: edge_ce_dice_loss(
+        aux, out, t, cfg.wb, cfg.wd, cfg.lambda_edge),
+    "gt_ce_dice": lambda aux, out, t, cfg: gt_ce_dice_loss(
+        aux, out, t, cfg.wb, cfg.wd, cfg.lambda_edge),
 }
-# The JAX package's other criteria: the pyramid variants, focal loss and the
-# multi-class family.
-for _name in ("edge_dice", "edge_bce", "focal", "ce", "mc_dice", "ce_dice",
-              "edge_ce_dice", "gt_ce_dice"):
-    LOSS_REGISTRY[_name] = _not_ported(_name)
 
 # Default criterion per model family when LossConfig.name == "auto".
 AUTO_LOSS = {

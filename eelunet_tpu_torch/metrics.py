@@ -4,14 +4,15 @@ reference evaluate.py).
 Binary masks, NHWC as in the JAX package. Boundary F1 is batched device math:
 the erosion is one (2d+1)x(2d+1) min-pool, exact for binary masks and equal
 to ``cv2.erode`` with its default +inf border. The accumulator holds summable
-counts, so batches add up without a host round trip. The multi-class metrics
-are not ported yet (``ROADMAP.md``).
+counts, so batches add up without a host round trip; in multi-class mode
+(``model.out_channels > 1``) that state is a confusion matrix.
 """
 
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -115,12 +116,76 @@ METRIC_NAMES: Tuple[str, ...] = (
 )
 
 
-def update_metrics_multiclass(*_args, **_kwargs):
-    """Multi-class metric state (the JAX package's ``update_metrics_multiclass``)."""
-    raise NotImplementedError("multi-class metrics are not ported to eelunet_tpu_torch yet; "
-                              "see ROADMAP.md")
+# Multi-class metrics (model.out_channels > 1), as in the JAX package: a
+# C x C confusion matrix is the summable state. iou, dice, precision, recall
+# and f1 are macros over the foreground classes 1..C-1; miou and mdice over
+# all classes; boundary_f1 on the foreground mask (class != 0).
 
 
-def finalize_metrics_multiclass(*_args, **_kwargs):
-    raise NotImplementedError("multi-class metrics are not ported to eelunet_tpu_torch yet; "
-                              "see ROADMAP.md")
+class MetricAccumMC(NamedTuple):
+    """Summable multi-class state: add across batches."""
+
+    confusion: torch.Tensor       # (C, C) float32; rows = true, cols = pred
+    boundary_f1_sum: torch.Tensor
+    samples: torch.Tensor
+
+    def __add__(self, other: "MetricAccumMC") -> "MetricAccumMC":
+        return MetricAccumMC(*(a + b for a, b in zip(self, other)))
+
+
+def update_metrics_multiclass(seg_prob: torch.Tensor, labels: torch.Tensor,
+                              dilation_ratio: float = 0.02) -> MetricAccumMC:
+    """One batch of multi-class state. ``seg_prob`` (B,H,W,C) softmax
+    probabilities, ``labels`` (B,H,W,1) class ids; the prediction is the
+    argmax class. True ids are clipped to [0, C-1] (the losses do not
+    clip)."""
+    c = seg_prob.shape[-1]
+    pred = torch.argmax(seg_prob, dim=-1)
+    true = torch.clamp(torch.round(labels[..., 0].float()).long(), 0, c - 1)
+    flat = (true * c + pred).reshape(-1)
+    confusion = torch.bincount(flat, minlength=c * c).reshape(c, c).float()
+    fg_pred = (pred > 0).float()[..., None]
+    fg_true = (true > 0).float()[..., None]
+    bf1 = torch.sum(boundary_f1_batch(fg_true, fg_pred, dilation_ratio))
+    n = torch.tensor(float(seg_prob.shape[0]), device=seg_prob.device)
+    return MetricAccumMC(confusion, bf1, n)
+
+
+def per_class_metrics(acc: MetricAccumMC) -> Dict[str, np.ndarray]:
+    """Per-class iou, dice, precision, recall and support (host numpy) from
+    the confusion matrix: the drill-down behind the macro scalars."""
+    conf = acc.confusion.detach().cpu().numpy()
+    tp = np.diag(conf)
+    fn = conf.sum(1) - tp
+    fp = conf.sum(0) - tp
+    return {
+        "iou": tp / (tp + fp + fn + EPS),
+        "dice": 2 * tp / (2 * tp + fp + fn + EPS),
+        "precision": tp / (tp + fp + EPS),
+        "recall": tp / (tp + fn + EPS),
+        "support": conf.sum(1),
+    }
+
+
+def finalize_metrics_multiclass(acc: MetricAccumMC) -> Dict[str, torch.Tensor]:
+    """The scalar metrics (names == METRIC_NAMES) from the confusion matrix."""
+    conf = acc.confusion
+    tp = torch.diagonal(conf)
+    fn = torch.sum(conf, dim=1) - tp
+    fp = torch.sum(conf, dim=0) - tp
+    iou_c = tp / (tp + fp + fn + EPS)
+    dice_c = 2 * tp / (2 * tp + fp + fn + EPS)
+    prec_c = tp / (tp + fp + EPS)
+    rec_c = tp / (tp + fn + EPS)
+    f1_c = 2 * prec_c * rec_c / (prec_c + rec_c + EPS)
+    return {
+        "pixel_accuracy": torch.sum(tp) / (torch.sum(conf) + EPS),
+        "precision": torch.mean(prec_c[1:]),
+        "recall": torch.mean(rec_c[1:]),
+        "f1_score": torch.mean(f1_c[1:]),
+        "iou": torch.mean(iou_c[1:]),
+        "dice": torch.mean(dice_c[1:]),
+        "miou": torch.mean(iou_c),
+        "boundary_f1": acc.boundary_f1_sum / (acc.samples + EPS),
+        "mdice": torch.mean(dice_c),
+    }

@@ -13,17 +13,26 @@ Two tiers, with the JAX package's names under ``save_dir/<name>/``:
   ``python -m eelunet_tpu_torch.cli.serve --model_type <name> --checkpoint
   <tag>.npz`` serves a tag as it is. Tags written in the same epoch are hard links of one file.
 
-Writes are synchronous: ``async_checkpoint`` is accepted and ignored. Each
-file is written under a temporary name and renamed into place.
+Each file is written under a temporary name and renamed into place. With
+``async_writes=True`` (``TrainConfig.async_checkpoint``, on by default),
+saves called with ``background=True`` (``Trainer.fit``'s per-epoch tags and
+snapshots) copy the tensors they write before they return, on the tensors'
+device, and one worker thread moves the copies to the host and writes the
+files, in submission order, while training goes on. The copy is what makes
+this safe: ``optimizer.step()`` and the BN updates change the live tensors
+in place. A failed write is raised again on the next submit or ``wait()``.
+Direct calls stay synchronous, so their files can be read when they return.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import queue
 import re
 import shutil
-from typing import Any, Dict, List, Optional
+import threading
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -60,47 +69,157 @@ def is_full_snapshot(path: str) -> bool:
     return os.path.isfile(os.path.join(path, _STATE_FILE))
 
 
+class _AsyncWriter:
+    """One daemon worker that drains checkpoint writes in submission order.
+    A failed write is re-raised on the next ``submit()`` or ``wait()``, and
+    the writes queued after it are skipped (a later write may depend on the
+    failed one's directory)."""
+
+    def __init__(self):
+        self._q: "queue.Queue[Callable[[], None]]" = queue.Queue()
+        self._exc: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="eelunet-ckpt-writer")
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            fn = self._q.get()
+            try:
+                if self._exc is None:
+                    fn()
+            except BaseException as e:  # raised at the next submit() or wait()
+                self._exc = e
+            finally:
+                self._q.task_done()
+
+    def _reraise(self):
+        if self._exc is not None:
+            e, self._exc = self._exc, None
+            raise RuntimeError("async checkpoint write failed") from e
+
+    def submit(self, fn: Callable[[], None]) -> None:
+        self._reraise()
+        self._q.put(fn)
+
+    def wait(self) -> None:
+        self._q.join()
+        self._reraise()
+
+
+def _map_tensors(fn, tree):
+    """``tree`` (nested dicts, lists and tuples) with ``fn`` applied to each
+    tensor; the containers are new, the other leaves (numbers, None) kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return tree
+
+
+class _Snapshot:
+    """The tensors of a save, cloned now on their devices (on a card, on the
+    current stream); ``host()`` (on the writer thread) waits for the clones,
+    then copies them to the host."""
+
+    def __init__(self, tree):
+        self._tree = _map_tensors(lambda t: t.detach().clone(), tree)
+        self._event = None
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def host(self):
+        if self._event is not None:
+            self._event.synchronize()
+        return _map_tensors(lambda t: t.cpu(), self._tree)
+
+
 class CheckpointManager:
-    def __init__(self, save_dir: str, model_name: str):
+    def __init__(self, save_dir: str, model_name: str, async_writes: bool = False):
         self.root = os.path.abspath(os.path.join(save_dir, model_name))
         os.makedirs(self.root, exist_ok=True)
         self.model_name = model_name
+        self._async = _AsyncWriter() if async_writes else None
+
+    def wait(self) -> None:
+        """Block until every pending background write has landed (a no-op
+        when writes are synchronous); re-raises the first failed one."""
+        if self._async is not None:
+            self._async.wait()
+
+    def run_after_saves(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` after every pending write (at once when synchronous):
+        for a sidecar file that must not land before its checkpoint."""
+        if self._async is not None:
+            self._async.submit(fn)
+        else:
+            fn()
+
+    def _run(self, work: Callable[[], None], background: bool) -> None:
+        if background and self._async is not None:
+            self._async.submit(work)
+        else:
+            self.wait()  # keep the order of any earlier background writes
+            work()
 
     def tag_path(self, tag: str) -> str:
         return os.path.join(self.root, f"{self.model_name}_{tag}")
 
-    def save(self, tag: str, state, epoch: Optional[int] = None) -> str:
-        """Full snapshot of ``state`` (a TrainState) under ``<name>_<tag>/``."""
+    def save(self, tag: str, state, epoch: Optional[int] = None,
+             background: bool = False) -> str:
+        """Full snapshot of ``state`` (a TrainState) under ``<name>_<tag>/``.
+        ``background=True`` copies the state now and writes it on the
+        worker."""
         path = self.tag_path(tag)
-        os.makedirs(path, exist_ok=True)
-        tmp = os.path.join(path, _STATE_FILE + ".tmp")
-        torch.save(state.state_dict(), tmp)
-        os.replace(tmp, os.path.join(path, _STATE_FILE))
-        write_format_meta(path, ema=state.ema is not None, epoch=epoch)
+        ema = state.ema is not None
+        enqueue = background and self._async is not None
+        snap = _Snapshot(state.state_dict()) if enqueue else None
+
+        def work():
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, _STATE_FILE + ".tmp")
+            torch.save(snap.host() if enqueue else state.state_dict(), tmp)
+            os.replace(tmp, os.path.join(path, _STATE_FILE))
+            write_format_meta(path, ema=ema, epoch=epoch)
+
+        self._run(work, background)
         return path
 
-    def save_weights_tags(self, tags, state_dict: Dict[str, torch.Tensor]) -> List[str]:
+    def save_weights_tags(self, tags, state_dict: Dict[str, torch.Tensor],
+                          background: bool = False) -> List[str]:
         """Write ``state_dict`` (the port's, unfolded) once as an
         upstream-layout ``.npz`` per tag; the tags after the first are hard
-        links of the first file."""
+        links of the first file. ``background=True`` copies the tensors now
+        and converts and writes them on the worker."""
         paths = [self.tag_path(t) + ".npz" for t in tags]
         if not paths:
             return []
-        arrays = to_upstream_state_dict(state_dict, self.model_name)
-        for i, path in enumerate(paths):
-            tmp = path + ".tmp"
-            if i == 0:
-                with open(tmp, "wb") as f:
-                    np.savez(f, **arrays)
-            else:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-                os.link(paths[0], tmp)
-            os.replace(tmp, path)
+        enqueue = background and self._async is not None
+        snap = _Snapshot(state_dict) if enqueue else None
+
+        def work():
+            arrays = to_upstream_state_dict(snap.host() if enqueue else state_dict,
+                                            self.model_name)
+            for i, path in enumerate(paths):
+                tmp = path + ".tmp"
+                if i == 0:
+                    with open(tmp, "wb") as f:
+                        np.savez(f, **arrays)
+                else:
+                    if os.path.exists(tmp):
+                        os.remove(tmp)
+                    os.link(paths[0], tmp)
+                os.replace(tmp, path)
+
+        self._run(work, background)
         return paths
 
     def restore(self, path: str, state) -> Any:
         """Load a full snapshot into ``state`` (a TrainState) in place."""
+        self.wait()  # never read under a pending write
         if not is_full_snapshot(path):
             raise ValueError(
                 f"{path} is not a full snapshot (no {_STATE_FILE}): weights-only tags "
@@ -117,11 +236,20 @@ class CheckpointManager:
         state.load_state_dict(sd)
         return state
 
-    def prune_snapshots(self, keep: int) -> List[str]:
+    def prune_snapshots(self, keep: int, background: bool = False) -> List[str]:
         """Delete all but the newest ``keep`` ``<name>_epoch_N`` snapshots
-        (0 keeps all). Best tags and ``last`` are never pruned."""
+        (0 keeps all). Best tags and ``last`` are never pruned. With
+        ``background=True`` the sweep queues behind the pending saves and
+        returns no paths."""
         if keep <= 0:
             return []
+        if background and self._async is not None:
+            self._async.submit(lambda: self._prune_snapshots(keep))
+            return []
+        self.wait()
+        return self._prune_snapshots(keep)
+
+    def _prune_snapshots(self, keep: int) -> List[str]:
         pat = re.compile(re.escape(self.model_name) + r"_epoch_(\d+)$")
         snaps = sorted((int(m.group(1)), os.path.join(self.root, d))
                        for d in os.listdir(self.root)
@@ -133,6 +261,7 @@ class CheckpointManager:
 
     def latest_path(self) -> Optional[str]:
         """The most recently written full snapshot (``resume_from=auto``)."""
+        self.wait()
         candidates = [p for d in os.listdir(self.root)
                       if d.startswith(f"{self.model_name}_")
                       and is_full_snapshot(p := os.path.join(self.root, d))]

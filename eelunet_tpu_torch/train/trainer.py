@@ -19,11 +19,13 @@ the plain reference.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
 import time
 from datetime import datetime
+from functools import partial
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -45,35 +47,26 @@ from eelunet_tpu_torch.registry import (
 )
 from eelunet_tpu_torch.train.checkpoint import BestTracker, CheckpointManager, read_meta
 from eelunet_tpu_torch.train.state import TrainState, build_optimizer, clip_by_global_norm
+from eelunet_tpu_torch.utils.profiling import start_trace, stop_trace
 
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for the options of the JAX Trainer that
     the port does not have yet (``ROADMAP.md``)."""
-    m, d = cfg.model, cfg.data
     todo = []
-    if m.out_channels > 1:
-        todo.append("multi-class models (model.out_channels > 1)")
-    if m.slim_init:
+    if cfg.model.slim_init:
         todo.append("slim checkpoints (model.slim_init)")
-    if d.packed:
-        todo.append("packed datasets (data.packed)")
-    if d.device_cache:
-        todo.append("the device-resident dataset (data.device_cache)")
     if cfg.mesh.data_axis not in (-1, 1) or cfg.mesh.model_axis > 1 or cfg.mesh.spatial_axis > 1:
         todo.append("multi-GPU meshes (mesh.*_axis > 1)")
-    if cfg.profile_steps > 0:
-        todo.append("traced train steps (profile_steps > 0)")
     if todo:
         raise NotImplementedError("not ported to eelunet_tpu_torch yet: " + "; ".join(todo)
                                   + "; see ROADMAP.md")
 
 
-# Options of the JAX Trainer that the port accepts and does not act on yet
+# Options of the JAX Trainer that the port accepts and does not act on
 # (ROADMAP.md), with what the port does instead. ``fit`` names the ones that
 # are set in one line at its start.
 IGNORED_OPTIONS = {
-    "async_checkpoint": "checkpoint writes are synchronous",
     "donate_buffers": "the eager step donates no buffers",
     "compile_cache": "nothing is compiled ahead, so there is no cache",
 }
@@ -196,8 +189,12 @@ def make_eval_loss_step(loss_fn: Callable, amp_dtype=None):
 
 
 def make_eval_step(meta, threshold: float = 0.5, tta: bool = False, amp_dtype=None):
+    """The metric counts of one batch: ``MetricAccum`` for a binary model,
+    and for a multi-class one (C > 1 probability channels) the argmax's
+    ``MetricAccumMC``."""
+
     @torch.no_grad()
-    def eval_step(state: TrainState, images, labels) -> M.MetricAccum:
+    def eval_step(state: TrainState, images, labels):
         model = state.model
         model.eval()
 
@@ -207,6 +204,8 @@ def make_eval_step(meta, threshold: float = 0.5, tta: bool = False, amp_dtype=No
                 return nhwc(seg_probabilities(model(nchw(x)), meta)).float()
 
         probs = predict_probabilities(fwd, images, tta=tta)
+        if probs.shape[-1] > 1:
+            return M.update_metrics_multiclass(probs, labels)
         return M.update_metrics(probs, labels, threshold)
 
     return eval_step
@@ -231,7 +230,9 @@ class Trainer:
         self.loss_name = L.resolve_loss_name(cfg.loss.name, cfg.model.name,
                                              cfg.model.out_channels)
         self.loss_fn = make_loss_fn(self.loss_name, cfg.loss, self.meta)
-        self.ckpt = CheckpointManager(cfg.save_dir, cfg.model.name)
+        self.ckpt = CheckpointManager(cfg.save_dir, cfg.model.name,
+                                      async_writes=cfg.async_checkpoint)
+        self._profiled = False
         self.best = BestTracker()
         self.last_skipped_steps = 0
         self._steps: Dict[str, Callable] = {}
@@ -273,16 +274,31 @@ class Trainer:
 
     def train_one_epoch(self, state: TrainState, loader) -> Tuple[TrainState, float]:
         """One pass over ``loader``: (state, mean loss over the applied
-        steps). Skipped steps are counted in ``last_skipped_steps``."""
+        steps). Skipped steps are counted in ``last_skipped_steps``. With
+        ``profile_steps > 0`` the steps [1, 1 + profile_steps) of the first
+        epoch are traced into ``log_dir/<model>/profile`` (step 0 warms up)."""
         step = self._get_step("train")
         total = torch.zeros((), device=self.device)
         n = applied = 0
-        for images, labels in self._device_batches(loader):
-            loss, ok = step(state, images, labels)
-            if ok:
-                total = total + loss
-                applied += 1
-            n += 1
+        want_prof = self.cfg.profile_steps if not self._profiled else 0
+        prof = None
+        try:
+            for i, (images, labels) in enumerate(self._device_batches(loader)):
+                if want_prof and i == 1:
+                    prof = start_trace(os.path.join(self.cfg.log_dir, self.cfg.model.name,
+                                                    "profile"))
+                loss, ok = step(state, images, labels)
+                if ok:
+                    total = total + loss
+                    applied += 1
+                n += 1
+                if prof is not None and i >= want_prof:
+                    stop_trace(prof)
+                    prof, self._profiled = None, True
+        finally:
+            if prof is not None:  # the epoch ended inside the window, or a step raised
+                stop_trace(prof)
+                self._profiled = True
         self.last_skipped_steps = n - applied
         return state, float(total) / max(applied, 1)
 
@@ -295,16 +311,22 @@ class Trainer:
             n += 1
         return float(total) / max(n, 1)
 
-    def evaluate(self, state: TrainState, loader) -> Dict[str, float]:
-        """Full metric evaluation (reference evaluate.py:62-124)."""
+    def evaluate(self, state: TrainState, loader, return_accum: bool = False):
+        """Full metric evaluation (reference evaluate.py:62-124).
+        ``return_accum=True`` also returns the summed accumulator
+        (``MetricAccum`` or ``MetricAccumMC``), for the per-class table."""
         step = self._get_step("eval")
         acc = None
         for images, labels in self._device_batches(loader):
             batch_acc = step(state, images, labels)
             acc = batch_acc if acc is None else acc + batch_acc
         if acc is None:
-            return {k: 0.0 for k in M.METRIC_NAMES}
-        return {k: float(v) for k, v in M.finalize_metrics(acc).items()}
+            out = {k: 0.0 for k in M.METRIC_NAMES}
+        else:
+            final = (M.finalize_metrics_multiclass(acc) if isinstance(acc, M.MetricAccumMC)
+                     else M.finalize_metrics(acc))
+            out = {k: float(v) for k, v in final.items()}
+        return (out, acc) if return_accum else out
 
     def fit(self, train_loader, val_loader, test_loader, state: Optional[TrainState] = None,
             log=print) -> Tuple[TrainState, Dict[str, Any]]:
@@ -346,6 +368,7 @@ class Trainer:
             except (OSError, ValueError):
                 pass
 
+        bg = cfg.async_checkpoint
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.time()
             if hasattr(train_loader, "set_epoch"):
@@ -362,11 +385,13 @@ class Trainer:
             history["metrics"].append(metrics)
             logger.log_epoch(epoch + 1, train_loss, val_loss, metrics)
 
+            # With async_checkpoint the tensors are copied here and written
+            # by the checkpoint worker while the next epoch runs.
             self.ckpt.save_weights_tags(self.best.update(metrics, val_loss),
-                                        state.model.state_dict())
+                                        state.model.state_dict(), background=bg)
             if (epoch + 1) % cfg.snapshot_every == 0:
-                self.ckpt.save(f"epoch_{epoch + 1}", state, epoch=epoch + 1)
-                self.ckpt.prune_snapshots(cfg.keep_snapshots)
+                self.ckpt.save(f"epoch_{epoch + 1}", state, epoch=epoch + 1, background=bg)
+                self.ckpt.prune_snapshots(cfg.keep_snapshots, background=bg)
             log(f"Epoch [{epoch + 1}/{cfg.epochs}]\tTrain Loss: {train_loss:.4f}\t"
                 f"Val Loss: {val_loss:.4f}\t"
                 + "".join(f"{k}: {metrics[k]:.4f}\t"
@@ -375,13 +400,19 @@ class Trainer:
                 + f"({time.time() - t0:.1f}s)")
             with open(json_path, "w") as f:
                 json.dump(history, f, indent=2)
-            self.best.save(self.ckpt.root)
+            # best_meta.json must not land before its best tags (a resume
+            # would then skip a tag that was never written): it queues
+            # behind them, on a copy, since self.best changes next epoch.
+            self.ckpt.run_after_saves(partial(copy.deepcopy(self.best).save, self.ckpt.root))
 
         if cfg.epochs > start_epoch and cfg.epochs % cfg.snapshot_every != 0:
             # The final full snapshot, unless the last epoch wrote epoch_N.
-            self.ckpt.save("last", state, epoch=cfg.epochs)
+            self.ckpt.save("last", state, epoch=cfg.epochs, background=bg)
         if cfg.epochs > start_epoch and state.ema is not None:
-            self.ckpt.save_weights_tags(["ema"], state.ema_state_dict())
+            self.ckpt.save_weights_tags(["ema"], state.ema_state_dict(), background=bg)
+        # Every file is on disk when fit returns; a failed background write
+        # is raised here.
+        self.ckpt.wait()
         log("Training complete. Best: "
             + " ".join(f"{k}={v:.4f}" for k, v in self.best.best.items()))
         logger.close()

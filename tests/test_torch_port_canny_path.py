@@ -221,7 +221,7 @@ def test_evaluate_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         evaluate_cli.main(["--device", "cpu", "--checkpoint", str(slim)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate_cli.main(["--device", "cpu", "--set", "model.out_channels=2"])
+        evaluate_cli.main(["--device", "cpu", "--set", "mesh.data_axis=2"])
 
 
 def test_trainer_takes_four_channels_with_the_edge_flag():

@@ -84,10 +84,13 @@ def test_metrics_match_jax():
 
 
 def test_out_of_scope_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        losses.LOSS_REGISTRY["focal"](None, None, None, LossConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        metrics.update_metrics_multiclass(None, None)
+    """Every criterion of the JAX package is ported (the multi-class ones
+    and ``focal``, ``edge_dice``, ``edge_bce`` are held to JAX in
+    tests/test_torch_port_multiclass.py); a name outside the registry is a
+    KeyError, as in JAX."""
+    assert set(losses.LOSS_REGISTRY) == set(jax_losses.LOSS_REGISTRY)
+    with pytest.raises(KeyError):
+        losses.LOSS_REGISTRY["nope"]
     assert losses.resolve_loss_name("auto", "eelunet") == "edge_bce_dice"
 
 

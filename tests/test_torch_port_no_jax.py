@@ -28,5 +28,7 @@ def test_port_imports_no_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    # every module of the serving, training and Canny slices and the families
-    assert n_modules >= 44, proc.stdout
+    # every module of the serving, training and Canny slices, the families,
+    # and cli.predict, cli.pack, the packed and device-cached feeds and the
+    # profiler
+    assert n_modules >= 49, proc.stdout

@@ -46,13 +46,13 @@ LR = 1e-4
 STEPS = 3
 
 
-def narrow_flax_variables(seed: int = 0, in_channels: int = 3):
+def narrow_flax_variables(seed: int = 0, in_channels: int = 3, out_channels: int = 1):
     """Flax variables (numpy trees) of the narrow EELUnet: PyTorch's default
     init from a seeded generator, BN statistics and affines randomised (the
     identity-like init would hide a broken fold or a mis-mapped statistic),
     imported through the JAX package's own upstream-layout importer. No JAX
     tracing is needed to make them."""
-    cfg = dataclasses.replace(CFG, in_channels=in_channels)
+    cfg = dataclasses.replace(CFG, in_channels=in_channels, out_channels=out_channels)
     sd = random_state_dict(cfg, seed=seed, widths=NARROW)
     rng = np.random.default_rng(seed)
     for k, v in sd.items():
@@ -79,8 +79,8 @@ def port_state(sd, cfg=CFG, lr=LR, spe=STEPS, dtype=torch.float32) -> TrainState
     return TrainState(model, opt, sched, seed=0)
 
 
-def edge_loss_fn():
-    return make_loss_fn("edge_bce_dice", LossConfig(), MODEL_REGISTRY["eelunet"])
+def edge_loss_fn(loss_name: str = "edge_bce_dice"):
+    return make_loss_fn(loss_name, LossConfig(), MODEL_REGISTRY["eelunet"])
 
 
 def port_index(variables):
@@ -104,22 +104,25 @@ def port_tree(variables, index):
     return {k: torch.from_numpy(flat[ix]) for k, ix in index.items()}
 
 
-def paired_train_steps(variables, batches, float64: bool, cfg=CFG):
+def paired_train_steps(variables, batches, float64: bool, cfg=CFG,
+                       loss_name: str = "edge_bce_dice"):
     """Paired train steps from the same narrow weights, one per batch, in
     float32 or float64: the JAX step on its low-rank high-pass, the port's
     step on the high-pass Function (plain twins on the CPU). ``batches``
     holds (JAX model input, port model input, labels) numpy triples, so each
     package may feed its own input chain's output. Also the first step's
     gradients: the port's ``.grad``, and JAX's from its Adam first moment
-    after one step, (1 - b1) (g + wd p)."""
+    after one step, (1 - b1) (g + wd p). ``loss_name`` is the criterion of
+    both steps; ``cfg.out_channels`` the model's head."""
     index = port_index(variables)
     steps = len(batches)
     wd = OptimizerConfig().weight_decay
     with jax.enable_x64(float64):
         jdt = jnp.float64 if float64 else jnp.float32
         model = JaxEELUnet(mask_range=MASK_RANGE, widths=NARROW, highpass_impl="lowrank",
+                           out_channels=cfg.out_channels,
                            **({"dtype": jdt} if float64 else {}))
-        loss_fn = jax_trainer.make_loss_fn("edge_bce_dice", JaxLossConfig(),
+        loss_fn = jax_trainer.make_loss_fn(loss_name, JaxLossConfig(),
                                            JAX_MODEL_REGISTRY["eelunet"])
         step = jax_trainer.make_train_step(model, loss_fn, True, donate=False)
         tx = jax_build_optimizer(JaxOptimizerConfig(lr=LR), steps)
@@ -142,7 +145,7 @@ def paired_train_steps(variables, batches, float64: bool, cfg=CFG):
     tdt = torch.float64 if float64 else torch.float32
     init = {k: v.to(tdt) for k, v in port_tree(variables, index).items()}
     pstate = port_state(init, cfg, spe=steps, dtype=tdt)
-    pstep = make_train_step(edge_loss_fn())
+    pstep = make_train_step(edge_loss_fn(loss_name))
     loss_t = []
     for i, (_, x, y) in enumerate(batches):
         loss, ok = pstep(pstate, torch.from_numpy(x).to(tdt), torch.from_numpy(y).to(tdt))
