@@ -118,6 +118,25 @@ Phases (any failure exits non-zero; none is skipped):
    masks of their size with ids in [0, 3), and the throughput of both;
    (11e) ``cli.serve`` with the 3-class tag, one mask request equal to the
    Predictor's argmax. Its launches join the JSON line's.
+12. The compression and deployment path on the full-width EELUnet at 512^2:
+   (12a) group masks at amounts 0.3 and 0.5 (``round_to`` 32), the slice,
+   and each slim model against its masked model on the card (float32 b2 at
+   JAX's slice bound, bf16 b16 at phase 10's bounds), kernels 1 and 2 twice
+   per slim forward; kernels 1-4 against their twins at the slim high-pass
+   sites (C = 96 at 256^2, C = 32 at 512^2; kernels 1 and 4 in turns with
+   their yardsticks); the served forwards in turns, unfolded and folded;
+   (12b) ``cli.prune --physical`` (one finetune epoch) on phase 7's best
+   tag and tree: its launches, every masked channel still zero, the slim
+   checkpoint, then ``cli.evaluate`` on it (the slim metrics cli.prune
+   printed) and ``cli.serve`` on it (one request, equal to the slim
+   Predictor); (12c) ``Predictor(quantize="int8")`` at b16: its op counts
+   equal the CPU's, probabilities within 0.1 of bf16, one eligible conv's
+   int product through im2col and ``torch._int_mm`` equal to the float64
+   twin, with its breakdown, and both Predictors timed in turns; (12d)
+   ``cli.export`` (buckets 1 and 8), ``cli.serve --artifact`` answering a
+   batch of 3 equal to the Predictor on the low-rank high-pass, the
+   artifact timed beside it, and an int8 artifact at bucket 1 equal to the
+   int8 Predictor. Its entry points' launches join the JSON line's.
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the one before that the hysteresis
@@ -240,6 +259,7 @@ CANNY_FLOPS = {"zero": 36, "improve": 38}
 # cores, f32 on CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
+PEAK_INT8_OPS = 1979e12
 # Readings with kernels 2 and 3 on CUDA cores (their earlier versions;
 # kernels 1 and 4 on the tensor cores), on an NVIDIA H100 80GB HBM3 at
 # 700.00 W, printed beside this run's: the served forward (512^2 b16 bf16)
@@ -869,15 +889,16 @@ def _npy(arr) -> bytes:
 
 @contextlib.contextmanager
 def _server(ckpt: str, workdir: str, model_type: str, phase: str, extra=()):
-    """``python -m eelunet_tpu_torch.cli.serve`` on ``ckpt`` at 512^2 bf16 in
-    a subprocess; yields its base URL once it answers, its launch counts at
-    0, and stops it on exit."""
+    """``python -m eelunet_tpu_torch.cli.serve`` on ``ckpt`` (None: an
+    ``--artifact`` in ``extra``) at 512^2 bf16 in a subprocess; yields its
+    base URL once it answers, its launch counts at 0, and stops it on exit."""
     port = _free_port()
     base = f"http://127.0.0.1:{port}"
     log_path = os.path.join(workdir, f"serve_{model_type}_{phase}.log")
     cmd = [sys.executable, "-m", "eelunet_tpu_torch.cli.serve", "--model_type", model_type,
-           "--checkpoint", ckpt, "--image_size", "512", "--set", "model.dtype=bfloat16",
-           "--max_batch", "16", "--window_ms", "20", "--port", str(port), *extra]
+           *(("--checkpoint", ckpt) if ckpt else ()), "--image_size", "512", "--set",
+           "model.dtype=bfloat16", "--max_batch", "16", "--window_ms", "20", "--port",
+           str(port), *extra]
     with open(log_path, "w") as log:
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
                                 cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -1887,6 +1908,463 @@ def phase_multiclass(workdir: str, tree: str, canny_best: str):
     return total
 
 
+# ------------------------------------------- phase 12: compression and deployment
+
+# The slim models of phase 12: (amount, round_to), cli.prune's default
+# round_to for the EELUnet. At 0.3 the high-pass sites keep C = 96 at 256^2
+# and 64 at 512^2; at 0.5, 64 and 32.
+PRUNE = ((0.3, 32), (0.5, 32))
+SLIM_SITES = ((16, 256, 256, 96), (16, 512, 512, 32))
+SLIM_TRAIN_SITES = ((8, 256, 256, 96), (8, 512, 512, 32))
+# The slim model against its masked model in float32: JAX's bound for the
+# EELUnet slice (tests/test_prune_physical.py:212), |d| <= atol + rtol |want|.
+SLIM_TOL = (3e-5, 1e-4)
+# The int8 Predictor's probabilities against the bf16 one: JAX's bound
+# (tests/test_quantize.py:176).
+QUANT_PROB_TOL = 0.1
+# An exported program against the Predictor pinned to the low-rank high-pass.
+ARTIFACT_TOL = 1e-5
+# cli.prune --physical --finetune_epochs 1 on phase 7's tree (batch 8): three
+# evaluations of the 8 test images, 2 finetune steps, 1 val forward and the
+# slim model's evaluation.
+PRUNE_FORWARDS, PRUNE_STEPS = 3 + 2 + 1 + 1, 2
+
+
+def _slim_kernel_rows(shape, dname, bwd: bool):
+    """Kernels 1-2 (or 3-4 with ``bwd``) against their twins at a slim
+    high-pass site, with kernel and twin times; printed with their bounds."""
+    import torch
+
+    from eelunet_tpu_torch.ops import fft_cuda
+
+    dev = torch.device("cuda")
+    dtype = torch.float32 if dname == "float32" else torch.bfloat16
+    b, h, w, c = shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    x3 = x.view(b, h, w * c)
+    rows = {}
+    with torch.inference_mode():
+        if not bwd:
+            vr_t, vi_t, uhr, uhi, uwr, uwi, vwr, vwi = fft_cuda.factor_tensors(
+                h, w, MASK_RANGE, dtype, dev)
+            tk = fft_cuda.highpass_contract(x3, vr_t, vi_t)
+            tp = fft_cuda.highpass_contract_plain(x3, vr_t, vi_t)
+            e_c = max(rel_err(tk[0], tp[0]), rel_err(tk[1], tp[1]), key=lambda e: e[1])
+            s_r, s_i = fft_cuda.w_axis_middle(tp[0], tp[1], uwr, uwi, vwr, vwi, w, c)
+            del tk, tp
+            ok_ = fft_cuda.highpass_expand(x3, uhr, uhi, s_r, s_i)
+            op_ = fft_cuda.highpass_expand_plain(x3, uhr, uhi, s_r, s_i)
+            e_e = rel_err(ok_, op_)
+            del ok_, op_
+            # kernel 1's yardstick, as phase 3: one bmm writing T in f32
+            v_stack = torch.cat([vr_t.t(), vi_t.t()]).contiguous().expand(b, -1, h)
+            out_dt = {"out_dtype": torch.float32} if dtype == torch.bfloat16 else {}
+            ms_c, lib_c, _ = in_turns(lambda: fft_cuda.highpass_contract(x3, vr_t, vi_t),
+                                      lambda: torch.bmm(v_stack, x3, **out_dt))
+            rows["highpass_contract"] = (e_c, ms_c, cuda_ms(
+                lambda: fft_cuda.highpass_contract_plain(x3, vr_t, vi_t)), lib_c)
+            rows["highpass_expand"] = (e_e, cuda_ms(
+                lambda: fft_cuda.highpass_expand(x3, uhr, uhi, s_r, s_i)), cuda_ms(
+                lambda: fft_cuda.highpass_expand_plain(x3, uhr, uhi, s_r, s_i)), None)
+            _print_rows("12a", rows, shape, dname, TOL[dname], uhr.shape[1])
+        else:
+            g3 = torch.randn(shape, generator=gen, device=dev).to(dtype).view(b, h, w * c)
+            vr_t, vi_t, uhr, uhi, uwr, uwi, vwr, vwi = fft_cuda.factor_tensors(
+                h, w, MASK_RANGE, torch.float32, dev)
+            _, s_r, s_i = fft_cuda.highpass_fwd(x, MASK_RANGE)
+            uk, trk, tik = fft_cuda.highpass_bwd_contract(x3, g3, uhr, uhi, s_r, s_i)
+            up, trp, tip = fft_cuda.highpass_bwd_contract_plain(x3, g3, uhr, uhi, s_r, s_i)
+            e_t = max(rel_err(trk, trp)[1], rel_err(tik, tip)[1])
+            e_u = (rel_err(uk, up)[0], rel_l2(uk, up))
+            r_r, r_i = fft_cuda.w_axis_middle(trp, tip, vwr.T, vwi.T, uwr.T, uwi.T, w, c)
+            del uk, trk, tik, trp, tip
+            dk = fft_cuda.highpass_bwd_expand(up, vr_t, vi_t, r_r, r_i)
+            dp = fft_cuda.highpass_bwd_expand_plain(up, vr_t, vi_t, r_r, r_i)
+            e_d = (rel_err(dk, dp)[0], rel_l2(dk, dp))
+            del dk, dp
+            print(f"[12a] highpass_bwd_contract T {str(shape):22s} {dname:8s} rel {e_t:.3e} "
+                  f"(bound {TOL['float32']:g})")
+            check(e_t <= TOL["float32"], f"bwd contract T {shape} {dname}: {e_t:.3e}")
+            rows["highpass_bwd_contract"] = (e_u, cuda_ms(
+                lambda: fft_cuda.highpass_bwd_contract(x3, g3, uhr, uhi, s_r, s_i)), cuda_ms(
+                lambda: fft_cuda.highpass_bwd_contract_plain(x3, g3, uhr, uhi, s_r, s_i)), None)
+            # kernel 4's yardstick, as phase 3b: an f32 baddbmm, TF32 on for
+            # that call in a bf16 model
+            v_cat = torch.cat([vr_t, -vi_t], dim=1).expand(b, h, 2 * vr_t.shape[1])
+            r_cat = torch.cat([r_r, r_i], dim=1)
+            u32 = up.float()
+
+            def lib_f32():
+                torch.backends.cuda.matmul.allow_tf32 = dtype == torch.bfloat16
+                try:
+                    return torch.baddbmm(u32, v_cat, r_cat, alpha=-1)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+
+            ms_d, lib_d, _ = in_turns(
+                lambda: fft_cuda.highpass_bwd_expand(up, vr_t, vi_t, r_r, r_i), lib_f32)
+            rows["highpass_bwd_expand"] = (e_d, ms_d, cuda_ms(
+                lambda: fft_cuda.highpass_bwd_expand_plain(up, vr_t, vi_t, r_r, r_i)), lib_d)
+            _print_rows("12a", rows, shape, dname, BWD_TOL[dname], uhr.shape[1], metric="rel-l2")
+    del x, x3
+    torch.cuda.empty_cache()
+
+
+def _slim_close(got, want) -> float:
+    """The largest |got - want| / (atol + rtol |want|) over the seg and aux
+    maps (<= 1 passes SLIM_TOL)."""
+    atol, rtol = SLIM_TOL
+    return max(((g.float() - w.float()).abs() / (atol + rtol * w.float().abs())).max().item()
+               for g, w in zip((got.seg, *got.aux), (want.seg, *want.aux)))
+
+
+def _phase12_slim(sd, x16):
+    """12a: masks, the slice and the slim models on the card; the kernels at
+    the slim sites; the slim served forwards timed beside the unpruned one."""
+    import dataclasses
+
+    import torch
+
+    from eelunet_tpu_torch.config import ModelConfig
+    from eelunet_tpu_torch.inference import build_serving_model
+    from eelunet_tpu_torch.ops import fft_cuda
+    from eelunet_tpu_torch.prune import apply_masks
+    from eelunet_tpu_torch.prune_physical import (
+        eelunet_prune_masks,
+        param_count,
+        physical_prune_eelunet,
+        slim_eelunet,
+    )
+    from eelunet_tpu_torch.registry import create_model
+
+    # float32 means float32 (phase 3 sets the same): TF32 convs would miss
+    # the slice's float32 bound by their own rounding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg32 = ModelConfig(name="eelunet", fft_mask_range=MASK_RANGE)
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+    # The JAX package serves slim models unfolded; the unpruned model is
+    # timed both ways, and the slim ones folded too, to tell the slice's
+    # effect from the fold's.
+    served = {"unpruned (BN folded)": build_serving_model(sd, cfg16, dev),
+              "unpruned (unfolded)": build_serving_model(sd, cfg16, dev, fold_bn=False)}
+    for amount, rt in PRUNE:
+        masks, _ = eelunet_prune_masks(sd, amount, rt)
+        masked, _ = create_model(cfg32)
+        masked.load_state_dict(sd)
+        apply_masks(masked, masks)
+        msd = masked.state_dict()
+        slim_sd, widths = physical_prune_eelunet(msd, amount, rt)
+        slim = slim_eelunet(widths, mask_range=MASK_RANGE)
+        slim.load_state_dict(slim_sd)
+        n0, n1 = param_count(masked), param_count(slim)
+        masked = masked.to(dev, memory_format=torch.channels_last).eval()
+        slim = slim.to(dev, memory_format=torch.channels_last).eval()
+        with torch.inference_mode():
+            want = masked(x16[:2])
+            fft_cuda.reset_launches()
+            got = slim(x16[:2])
+            torch.cuda.synchronize()
+            launches = dict(fft_cuda.LAUNCHES)
+            f32 = _slim_close(got, want)
+        del masked, slim, want, got
+        m16 = build_serving_model(msd, cfg16, dev, fold_bn=False)
+        s16 = build_serving_model(slim_sd, cfg16, dev, fold_bn=False, widths=widths)
+        with torch.inference_mode():
+            pw, pg = m16(x16.to(torch.bfloat16)).seg, s16(x16.to(torch.bfloat16)).seg
+            mean = (pg - pw).abs().mean().item()
+            mask = ((pg > 0.5) != (pw > 0.5)).float().mean().item()
+        del m16, pw, pg
+        sites = {k: widths[k] for k in ("eu2", "eu1")}
+        print(f"[12a] amount {amount}, round_to {rt}: params {n0 / 1e6:.2f}M -> "
+              f"{n1 / 1e6:.2f}M ({n1 / n0:.1%}); high-pass channels (eu2 at 256^2, eu1 at "
+              f"512^2) {sites}; float32 b2 slim vs masked: max |d| / (atol + rtol |want|) "
+              f"{f32:.3f} (bound 1; atol {SLIM_TOL[0]:g}, rtol {SLIM_TOL[1]:g}); bf16 b16: "
+              f"mean |d prob| {mean:.3e}, masks disagree on {mask:.2e} of pixels (bounds "
+              f"{FAMILY_TOL['mean']:g}, {FAMILY_TOL['mask']:g}); launches per slim forward "
+              f"{launches}", flush=True)
+        check(f32 <= 1.0, f"slim vs masked float32 at amount {amount}: {f32:.3f}")
+        check(mean <= FAMILY_TOL["mean"] and mask <= FAMILY_TOL["mask"],
+              f"slim vs masked bf16 at amount {amount}: mean {mean:.3e}, mask {mask:.2e}")
+        check(launches == {k: 2 if k in FWD else 0 for k in HIGHPASS},
+              f"launches per slim forward: {launches}")
+        served[f"slim {amount} (unfolded)"] = s16
+        served[f"slim {amount} (BN folded)"] = build_serving_model(slim_sd, cfg16, dev,
+                                                                   widths=widths)
+        torch.cuda.empty_cache()
+    for shape in SLIM_SITES:
+        for dname in ("float32", "bfloat16"):
+            _slim_kernel_rows(shape, dname, bwd=False)
+    for shape in SLIM_TRAIN_SITES:
+        for dname in ("float32", "bfloat16"):
+            _slim_kernel_rows(shape, dname, bwd=True)
+    xb = x16.to(torch.bfloat16)
+    names = list(served)
+    with torch.inference_mode():
+        turns = {n: [] for n in names}
+        for n in names + names[::-1]:
+            turns[n].append(cuda_ms(lambda: served[n](xb), iters=5))
+    ms = {n: sum(t) / 2 for n, t in turns.items()}
+    print("[12a] served forward 512^2 b16 bf16, in turns (each model, then the same in "
+          "reverse): " + "; ".join(f"{n} {ms[n]:.2f} ms ({turns[n][0]:.2f}, {turns[n][1]:.2f})"
+                                   for n in names), flush=True)
+    del served, xb
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _phase12_cli(workdir: str, tree: str, best: str):
+    """12b: cli.prune --physical on phase 7's best tag and tree, cli.evaluate
+    and cli.serve on its slim checkpoint. Returns their launches."""
+    import torch
+
+    from eelunet_tpu_torch.config import ModelConfig
+    from eelunet_tpu_torch.inference import Predictor, read_checkpoint
+    from eelunet_tpu_torch.prune_physical import eelunet_prune_masks, is_slim_checkpoint
+
+    out = os.path.join(workdir, "pruned")
+    common = ["--model_type", "eelunet", "--data_dir", tree, "--image_size", "512",
+              "--batch_size", "8", "--set", "model.dtype=bfloat16", "--seed", str(SEED),
+              "--save_dir", os.path.join(workdir, "ckpt_prune"),
+              "--set", f"log_dir={os.path.join(workdir, 'runs_prune')}"]
+    stdout, pl, wall = _cli("12b", "prune", common + [
+        "--checkpoint", best, "--physical", "--prune_amount", "0.3", "--finetune_epochs", "1",
+        "--out", out])
+    for line in stdout.splitlines():
+        if line.startswith(("params:", "iou ", "dice ", "[finetune", "Saved")):
+            print(f"[12b] {line}")
+    want = {k: 2 * (PRUNE_FORWARDS if k in FWD else PRUNE_STEPS) for k in HIGHPASS}
+    want.update(fused_canny=0, hysteresis=0, conv3x3=0)
+    check(pl == want, f"cli.prune launches {pl}, want {want}")
+    slim = out + "_slim"
+    check(is_slim_checkpoint(slim), f"no slim checkpoint at {slim}")
+    masks, _ = eelunet_prune_masks(read_checkpoint(best, "eelunet"), 0.3, 32)
+    tuned = torch.load(os.path.join(out, "state.pt"), map_location="cpu",
+                       weights_only=True)["model"]
+    leaked = [k for k, m in masks.items() if bool((tuned[k][m == 0] != 0).any())]
+    check(not leaked, f"masked channels not zero after the finetune: {leaked[:4]}")
+    m_prune = json.loads(stdout.split("slim metrics: ", 1)[1].splitlines()[0])
+
+    stdout, el, _ = _cli("12b", "evaluate", common + ["--checkpoint", slim])
+    m_eval = json.loads(stdout.split("metrics: ", 1)[1].splitlines()[0])
+    check(m_eval == m_prune, f"cli.evaluate on the slim checkpoint {m_eval} != cli.prune's "
+          f"{m_prune}")
+    check(el == {k: 2 if k in FWD else 0 for k in (*HIGHPASS, "fused_canny", "hysteresis",
+                                                     "conv3x3")}, f"evaluate launches {el}")
+
+    u8 = np.random.default_rng(SEED + 12).integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)
+    with _server(slim, workdir, "eelunet", "12b") as base:
+        code, body, _ = _http(base + "/v1/predict", _npy(u8))
+        got = np.load(io.BytesIO(body))
+        sl = json.loads(_http(base + "/v1/stats")[1])["kernel_launches"]
+    pred = Predictor(ModelConfig(name="eelunet", dtype="bfloat16"), checkpoint=slim,
+                     device="cuda")
+    want_p = pred.predict_proba(u8)
+    d = float(np.abs(got - want_p).max())
+    print(f"[12b] cli.prune {wall:.1f} s, launches {pl}; masked channels zero after the "
+          f"finetune; cli.evaluate on {os.path.basename(slim)} equals cli.prune's slim metrics "
+          f"{ {k: round(v, 4) for k, v in m_eval.items()} }; cli.serve on it: HTTP {code}, "
+          f"max |d| to the slim Predictor {d:.3e} (bound 1e-2), launches {sl}", flush=True)
+    check(code == 200 and got.shape == (1, 512, 512, 1) and d <= 1e-2, f"slim serve: {d}")
+    check(all(sl[k] == (2 if k in FWD else 0) for k in HIGHPASS), f"serve launches {sl}")
+    del pred
+    torch.cuda.empty_cache()
+    return {k: pl[k] + el[k] + sl.get(k, 0) for k in pl}
+
+
+def _phase12_int8(best: str, u8):
+    """12c: the int8 Predictor at 512^2 b16: its op counts against the CPU's,
+    its probabilities against the bf16 Predictor's, one eligible conv's int
+    product at a 512^2 site against the float64 twin, and both timed."""
+    import dataclasses
+
+    import torch
+
+    from eelunet_tpu_torch.config import ModelConfig
+    from eelunet_tpu_torch.inference import Predictor, build_serving_model, read_checkpoint
+    from eelunet_tpu_torch.ops import fft_cuda
+    from eelunet_tpu_torch import quantize as Q
+
+    cfg = ModelConfig(name="eelunet", dtype="bfloat16", fft_mask_range=MASK_RANGE)
+    dense = Predictor(cfg, checkpoint=best, device="cuda", proba_wire_dtype="float32")
+    quant = Predictor(cfg, checkpoint=best, device="cuda", quantize="int8",
+                      proba_wire_dtype="float32")
+    fft_cuda.reset_launches()
+    Q.reset_launches()
+    pq = quant.predict_proba(u8)
+    launches = dict(fft_cuda.LAUNCHES)
+    int_mm = Q.LAUNCHES["int8_mm"]
+    pd = dense.predict_proba(u8)
+    d = float(np.abs(pq - pd).max())
+    cpu_stats = {}
+    cpu = Q.quantize_model(build_serving_model(read_checkpoint(best, "eelunet"),
+                                               dataclasses.replace(cfg, dtype="float32"),
+                                               "cpu"), stats=cpu_stats)
+    with torch.inference_mode():
+        cpu(torch.zeros((1, 3, 64, 64)))
+    print(f"[12c] int8 Predictor 512^2 b16: quantized ops {quant.quant_stats} (the CPU's "
+          f"{cpu_stats}); max |d prob| to the bf16 Predictor {d:.4f} (bound {QUANT_PROB_TOL}), "
+          f"mean {float(np.abs(pq - pd).mean()):.2e}; launches per forward {launches}, "
+          f"torch._int_mm calls {int_mm}", flush=True)
+    check(quant.quant_stats == cpu_stats and cpu_stats["quantized_convs"] > 0,
+          "int8 op counts differ from the CPU's")
+    check(d <= QUANT_PROB_TOL and not np.array_equal(pq, pd), f"int8 vs bf16: {d}")
+    check(launches == {k: 2 if k in FWD else 0 for k in HIGHPASS}, f"int8 launches {launches}")
+    # one eligible conv at a 512^2 site (enc1.conv1, 64 -> 64, 3x3): the int
+    # product through im2col and _int_mm against the float64 conv twin
+    conv = quant.model.enc1.conv1
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    xh = torch.randint(-127, 128, (16, 512, 512, 64), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    with torch.inference_mode():
+        got = Q.int8_conv2d(xh, conv.wq, conv.n_out, conv.kernel, conv.stride, conv.padding,
+                            conv.dilation)
+        wq = conv.wq[:conv.n_out, :conv.k].reshape(conv.n_out, 3, 3, 64).permute(0, 3, 1, 2)
+        want = Q.int8_conv2d_plain(xh.permute(0, 3, 1, 2), wq, 1, 1, 1).permute(0, 2, 3, 1)
+        equal = torch.equal(got, want)
+        del want
+        ms_int = cuda_ms(lambda: Q.int8_conv2d(xh, conv.wq, conv.n_out, conv.kernel,
+                                               conv.stride, conv.padding, conv.dilation))
+        # where its time goes: the patches alone, and one GEMM on a chunk
+        cols = Q.im2col_nhwc(xh[:4], conv.kernel, conv.stride, conv.padding, conv.dilation,
+                             conv.wq.shape[1]).reshape(-1, conv.wq.shape[1])
+        ms_cols = cuda_ms(lambda: Q.im2col_nhwc(xh[:4], conv.kernel, conv.stride,
+                                                conv.padding, conv.dilation,
+                                                conv.wq.shape[1])) * 4
+        ms_mm = cuda_ms(lambda: torch._int_mm(cols, conv.wq.t())) * 4
+        ms_act = cuda_ms(lambda: Q.quantize_activation(xh[:4].permute(0, 3, 1, 2).to(
+            torch.bfloat16))) * 4
+        xb = xh.permute(0, 3, 1, 2).to(torch.bfloat16)
+        wb = wq.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        ms_bf16 = cuda_ms(lambda: torch.nn.functional.conv2d(xb, wb, None, 1, 1))
+        del cols, xb, wb
+    # int8 in read once, int32 out written once; the products at the int8 peak
+    bound = max(16 * 512 * 512 * 64 * (1 + 4) / HBM_BYTES_PER_S,
+                2 * 16 * 512 * 512 * 64 * 576 / PEAK_INT8_OPS) * 1e3
+    print(f"[12c] enc1.conv1 int product (16,512,512,64) -> 64 through im2col and _int_mm "
+          f"equals the float64 conv twin: {equal}; {ms_int:.3f} ms (im2col {ms_cols:.3f}, "
+          f"_int_mm {ms_mm:.3f}, by 4-image chunks; quantizing its bf16 input "
+          f"{ms_act:.3f}); cuDNN bf16 on the same shape {ms_bf16:.3f} ms; int8 bound "
+          f"{bound:.3f} ms (int8 in, int32 out: bytes)", flush=True)
+    check(equal, "int8 conv != its float64 twin")
+    del xh, got
+    x = torch.from_numpy(u8).cuda()
+    with torch.inference_mode():
+        turns = [cuda_ms(lambda: p._probs(x), iters=5) for p in (dense, quant, quant, dense)]
+    print(f"[12c] forward 512^2 b16: bf16 {(turns[0] + turns[3]) / 2:.2f} ms, int8 "
+          f"{(turns[1] + turns[2]) / 2:.2f} ms per batch (turns bf16, int8, int8, bf16 "
+          f"{[round(t, 2) for t in turns]})", flush=True)
+    del dense, quant, cpu
+    torch.cuda.empty_cache()
+    return launches, {"bf16_ms": (turns[0] + turns[3]) / 2, "int8_ms": (turns[1] + turns[2]) / 2}
+
+
+def _phase12_export(workdir: str, best: str):
+    """12d: cli.export at 512^2 (buckets 1 and 8) on the card, cli.serve
+    --artifact answering a ragged batch of 3, the artifact against the
+    Predictor pinned to the low-rank high-pass, an int8 artifact at bucket 1,
+    and the artifact's forward timed beside the Predictor's."""
+    import dataclasses
+
+    import torch
+
+    from eelunet_tpu_torch.config import ModelConfig
+    from eelunet_tpu_torch.export import ExportedModel, export_model
+    from eelunet_tpu_torch.inference import Predictor
+
+    art = os.path.join(workdir, "artifact")
+    stdout, el, wall = _cli("12d", "export", [
+        "--model_type", "eelunet", "--checkpoint", best, "--image_size", "512", "--set",
+        "model.dtype=bfloat16", "--batch_sizes", "1,8", "--output", art])
+    check(set(el.values()) == {0}, f"export launches {el}")
+    u8 = np.random.default_rng(SEED + 14).integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)
+    u8[3:] = 0  # the rows the artifact pads a batch of 3 with
+    with _server(None, workdir, "eelunet", "12d", extra=("--artifact", art)) as base:
+        code, body, _ = _http(base + "/v1/predict", _npy(u8[:3]))
+        got = np.load(io.BytesIO(body))
+    cfg = ModelConfig(name="eelunet", dtype="bfloat16", highpass_impl="lowrank")
+    lowrank = Predictor(cfg, checkpoint=best, device="cuda", bucket_batches=False,
+                        proba_wire_dtype="float32")
+    want = lowrank.predict_proba(u8)[:3]
+    d = float(np.abs(got - want).max())
+    print(f"[12d] cli.export {wall:.1f} s: {stdout.splitlines()[0]}; cli.serve --artifact, "
+          f"a batch of 3 (bucket 8): HTTP {code}, max |d| to the low-rank Predictor {d:.3e} "
+          f"(bound {ARTIFACT_TOL:g})", flush=True)
+    check(code == 200 and got.shape == (3, 512, 512, 1) and d <= ARTIFACT_TOL,
+          f"artifact vs Predictor: {d}")
+    model = ExportedModel(art)
+    x = torch.from_numpy(u8).cuda()
+    kernels = Predictor(dataclasses.replace(cfg, highpass_impl="auto"), checkpoint=best,
+                        device="cuda", bucket_batches=False)
+    with torch.inference_mode():
+        fns = (lambda: model._fns[8](x), lambda: lowrank._probs(x), lambda: kernels._probs(x))
+        turns = [cuda_ms(f, iters=5) for f in fns + fns[::-1]]
+    ms = {n: (turns[i] + turns[5 - i]) / 2 for i, n in enumerate(("artifact", "lowrank",
+                                                                   "kernels"))}
+    print(f"[12d] forward 512^2 b8 bf16: artifact {ms['artifact']:.2f} ms, Predictor on the "
+          f"low-rank high-pass {ms['lowrank']:.2f} ms, Predictor on the kernels "
+          f"{ms['kernels']:.2f} ms (turns {[round(t, 2) for t in turns]})", flush=True)
+    del model, kernels
+    t0 = time.monotonic()
+    qart = export_model(cfg, best, (512, 512), (1,), os.path.join(workdir, "artifact_int8"),
+                        quantize="int8", device="cuda")
+    qwall = time.monotonic() - t0
+    quant = Predictor(cfg, checkpoint=best, device="cuda", bucket_batches=False,
+                      quantize="int8", proba_wire_dtype="float32")
+    qd = float(np.abs(ExportedModel(qart).predict_proba(u8[:1])
+                      - quant.predict_proba(u8[:1])).max())
+    print(f"[12d] int8 artifact (bucket 1, exported in {qwall:.1f} s; _int_mm traced): max "
+          f"|d| to the int8 Predictor on the low-rank high-pass {qd:.3e} (bound "
+          f"{ARTIFACT_TOL:g})", flush=True)
+    check(qd <= ARTIFACT_TOL, f"int8 artifact vs Predictor: {qd}")
+    del lowrank, quant
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_compression(workdir: str, tree: str, best: str):
+    """Phase 12: the compression and deployment path on the full-width
+    EELUnet at 512^2 (module docstring). Returns the launches of its entry
+    points: cli.prune, cli.evaluate and cli.serve on the slim checkpoint,
+    and the int8 Predictor's forward."""
+    import torch
+
+    from eelunet_tpu_torch.config import ModelConfig
+    from eelunet_tpu_torch.data.augment import normalize_imagenet
+    from eelunet_tpu_torch.inference import random_state_dict
+    from eelunet_tpu_torch.nn.layers import nchw
+
+    t0 = time.monotonic()
+    sd = random_state_dict(ModelConfig(name="eelunet", fft_mask_range=MASK_RANGE), seed=SEED)
+    rng = np.random.default_rng(SEED + 11)
+    for k, v in sd.items():  # random BN statistics and affines: a leak would show
+        if ".bn" in f".{k}" or k.startswith("bottleneck_bn"):
+            if k.endswith((".weight", ".running_var")):
+                sd[k] = torch.from_numpy(rng.uniform(0.5, 1.5, v.shape).astype(np.float32))
+            elif k.endswith((".bias", ".running_mean")):
+                sd[k] = torch.from_numpy((rng.standard_normal(v.shape) * 0.1).astype(np.float32))
+    u8 = rng.integers(0, 256, (16, 512, 512, 3), dtype=np.uint8)
+    x16 = nchw(normalize_imagenet(torch.from_numpy(u8).cuda().float() / 255.0))
+    x16 = x16.contiguous(memory_format=torch.channels_last)
+    slim_ms = _phase12_slim(sd, x16)
+    del sd, x16
+    torch.cuda.empty_cache()
+    t1 = time.monotonic()
+    launches = _phase12_cli(workdir, tree, best)
+    t2 = time.monotonic()
+    q_launches, q_ms = _phase12_int8(best, u8)
+    t3 = time.monotonic()
+    a_ms = _phase12_export(workdir, best)
+    for k in q_launches:
+        launches[k] += q_launches[k]
+    print(f"[12] compression and deployment phase: {time.monotonic() - t0:.1f} s (12a "
+          f"{t1 - t0:.1f}, 12b {t2 - t1:.1f}, 12c {t3 - t2:.1f}, 12d {time.monotonic() - t3:.1f}); "
+          f"launches {launches}; times {slim_ms | q_ms | a_ms}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1910,8 +2388,10 @@ def main() -> int:
         canny, canny_best = phase_canny_path(workdir, tree, step["step_ms"])
         families = phase_families(workdir, tree)
         multiclass = phase_multiclass(workdir, tree, canny_best)
+        compression = phase_compression(workdir, tree, os.path.join(
+            workdir, "ckpt", "eelunet", "eelunet_best.npz"))
     launches = {k: served.get(k, 0) + trained[k] + canny[k] + families[k] + multiclass[k]
-                for k in (*KERNELS, "hysteresis")}
+                + compression.get(k, 0) for k in (*KERNELS, "hysteresis")}
     print(f"[8] all phases passed in {time.monotonic() - t0:.1f} s")
     hyst = record.pop("hysteresis")
     print(f"[3c] hysteresis (csrc/canny.cu hysteresis_kernel; the JAX package's lax.while_loop, "

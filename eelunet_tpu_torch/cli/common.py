@@ -6,7 +6,7 @@ the datasets and loaders of a config (counterpart of
 from __future__ import annotations
 
 import argparse
-import os
+import dataclasses
 from typing import Dict
 
 from eelunet_tpu_torch.config import TrainConfig, apply_overrides, config_from_json
@@ -129,12 +129,21 @@ def build_loaders(cfg: TrainConfig, device=None):
     return mk(full, tr_idx, True), mk(full, va_idx, False), mk(test, None, False)
 
 
-def refuse_slim(checkpoint: str) -> None:
-    """Raise ``NotImplementedError`` for a slim (physically pruned)
-    checkpoint, which the port cannot load yet."""
-    if checkpoint and os.path.isfile(os.path.join(checkpoint, "widths.json")):
-        raise NotImplementedError("slim (physically pruned) checkpoints are not ported to "
-                                  "eelunet_tpu_torch yet; see ROADMAP.md")
+def slim_config(cfg: TrainConfig, checkpoint: str, path_name: str) -> TrainConfig:
+    """The config for a slim (physically pruned) ``checkpoint``: its model
+    is the one its ``widths.json`` names, built from it
+    (``model.slim_init``). The Canny flags are refused, as in the JAX
+    package: they add a 4th input channel, and slim checkpoints hold
+    3-channel models. ``path_name`` names the CLI path in the message."""
+    from eelunet_tpu_torch.prune_physical import read_widths
+
+    if wants_raw_images(cfg.data):
+        raise ValueError(
+            f"add_canny_edge/canny_enhance are not supported on the slim "
+            f"(physically pruned) {path_name} path; {path_name} with the dense model.")
+    name, _ = read_widths(checkpoint)
+    model = dataclasses.replace(cfg.model, name=name, slim_init=checkpoint)
+    return dataclasses.replace(cfg, model=model)
 
 
 def kernel_launches() -> Dict[str, int]:

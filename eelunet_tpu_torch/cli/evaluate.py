@@ -10,9 +10,12 @@ the untrained model (evaluate.py:172-176), and prints the nine metrics.
 (upstream-layout ``.npz``) or a full snapshot (``<name>_last/`` or its
 ``state.pt``). The data flags (``data.add_canny_edge``, ``data.canny_enhance``,
 ``data.uint8_feed``) act as in training: the batches go through the same
-device-side input chain. A multi-class model (``--set model.out_channels=C``,
-masks of class ids) prints the macro metrics, then a per-class table. Runs
-on the CUDA card; ``--device cpu`` is the only way onto the CPU.
+device-side input chain. A slim checkpoint (``cli.prune --physical``'s
+``<out>_slim``, detected by its ``widths.json``) is evaluated with its slim
+module; the Canny flags are refused there, as in the JAX package. A
+multi-class model (``--set model.out_channels=C``, masks of class ids)
+prints the macro metrics, then a per-class table. Runs on the CUDA card;
+``--device cpu`` is the only way onto the CPU.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from eelunet_tpu_torch.cli.common import (
     kernel_launches,
     load_config,
     make_folder_dataset,
-    refuse_slim,
+    slim_config,
 )
 from eelunet_tpu_torch.data.pipeline import DataLoader
 from eelunet_tpu_torch.inference import read_checkpoint
@@ -39,9 +42,13 @@ def main(argv=None):
     p.add_argument("--checkpoint", type=str, default="")
     args = p.parse_args(argv)
     cfg = load_config(args)
-    refuse_slim(args.checkpoint)
 
+    from eelunet_tpu_torch.prune_physical import is_slim_checkpoint
     from eelunet_tpu_torch.train.trainer import Trainer
+
+    slim = is_slim_checkpoint(args.checkpoint)
+    if slim:
+        cfg = slim_config(cfg, args.checkpoint, "evaluate")
 
     trainer = Trainer(cfg, device=args.device)  # refuses what is not ported, first
     d = cfg.data
@@ -49,8 +56,10 @@ def main(argv=None):
     # Never drop tail samples: the metrics cover the whole split
     # (the reference's loader drops none either, evaluate.py:147).
     loader = DataLoader(ds, d.batch_size, num_workers=d.num_workers, drop_remainder=False)
-    state = trainer.init_state()
-    if args.checkpoint and os.path.exists(args.checkpoint):
+    state = trainer.init_state()  # a slim checkpoint's weights load here (slim_init)
+    if slim:
+        print(f"Loaded slim (physically pruned) weights from {args.checkpoint}")
+    elif args.checkpoint and os.path.exists(args.checkpoint):
         state.model.load_state_dict(read_checkpoint(args.checkpoint, trainer.cfg.model.name),
                                     strict=True)
         print(f"Loaded model weights from {args.checkpoint}")
@@ -58,7 +67,7 @@ def main(argv=None):
         print(f"Checkpoint not found at {args.checkpoint}. Evaluating untrained model.")
 
     print(f"Evaluation date: {datetime.now().strftime('%Y%m%d_%H%M%S')}")
-    print(f"Model: {cfg.model.name}")
+    print(f"Model: {cfg.model.name}" + (" (slim)" if slim else ""))
     m, acc = trainer.evaluate(state, loader, return_accum=True)
     print("Evaluation Metrics:")
     print(f"Pixel Accuracy: {m['pixel_accuracy']:.4f}")

@@ -19,7 +19,9 @@ through the device-side input chain of ``cli.train`` (the uint8 scale, the
 Canny augmentations when their flags are on), then the forward, with flip
 TTA when ``tta`` is set. Tiled mode (``--tile``): each image at its own
 size through ``Predictor.predict_tiled``; the Canny flags are refused there.
-``--quantize int8`` and slim checkpoints are not ported yet and raise. Runs
+``--quantize int8`` runs the W8A8 model (``quantize.py``). A slim checkpoint
+(``cli.prune --physical``'s ``<out>_slim``) is served by its slim module,
+unfolded; the Canny flags are refused there, as in the JAX package. Runs
 on the CUDA card; ``--device cpu`` is the only way onto the CPU. The last
 line is the run's ``kernel launches:``.
 """
@@ -38,7 +40,7 @@ from eelunet_tpu_torch.cli.common import (
     kernel_launches,
     load_config,
     make_folder_dataset,
-    refuse_slim,
+    slim_config,
     wants_raw_images,
 )
 
@@ -133,13 +135,17 @@ def main(argv=None):
     p.add_argument("--tile_overlap", type=int, default=64,
                    help="overlap between adjacent tiles (blended seam-free)")
     p.add_argument("--quantize", type=str, default="", choices=["", "int8"],
-                   help="not ported yet (JAX package: W8A8 int8 convs)")
+                   help="int8: W8A8 dynamic-scale convs and dots (eelunet_tpu_torch.quantize)")
     args = p.parse_args(argv)
     cfg = load_config(args)
 
     if not os.path.exists(args.checkpoint):
         raise FileNotFoundError(f"Checkpoint not found: {args.checkpoint}")  # test.py:86
-    refuse_slim(args.checkpoint)
+    from eelunet_tpu_torch.prune_physical import is_slim_checkpoint
+
+    if is_slim_checkpoint(args.checkpoint) and not args.tile:
+        # the model the sidecar names; the Predictor builds it unfolded
+        cfg = slim_config(cfg, args.checkpoint, "predict")
     out_dir = _predict_tiled(args, cfg) if args.tile else _predict_resized(args, cfg)
     print("kernel launches: " + json.dumps(kernel_launches()), flush=True)
     return out_dir

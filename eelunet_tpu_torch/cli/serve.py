@@ -8,7 +8,11 @@
 ``--checkpoint`` is an upstream-layout state dict of the ``--model_type``
 family (any of the seven): the ``.npz`` (or ``.pth``) that ``python -m
 eelunet_tpu.cli.export_torch --numpy`` writes from a JAX checkpoint, a best
-tag of the port's ``cli.train``, or a reference ``.pth``. Protocol and batching semantics:
+tag of the port's ``cli.train``, or a reference ``.pth``; a full snapshot;
+or a slim checkpoint (``cli.prune --physical``), served by its slim module.
+``--quantize int8`` serves the W8A8 model (``quantize.py``). ``--artifact
+DIR`` serves a ``cli.export`` artifact instead, with no model code, through
+the same micro-batcher. Protocol and batching semantics:
 ``eelunet_tpu_torch/serving.py``.
 """
 
@@ -62,14 +66,15 @@ def main(argv=None):
     p.add_argument("--checkpoint", type=str, default="",
                    help="upstream-layout state dict (.npz or .pth)")
     p.add_argument("--artifact", type=str, default="",
-                   help="not ported yet (JAX package: serve a cli.export artifact)")
+                   help="serve a cli.export artifact dir instead of a checkpoint "
+                   "(no model code needed)")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8500)
     p.add_argument("--max_batch", type=int, default=16)
     p.add_argument("--window_ms", type=float, default=5.0)
     p.add_argument("--threshold", type=float, default=0.5)
     p.add_argument("--quantize", type=str, default="", choices=["", "int8"],
-                   help="not ported yet (JAX package: W8A8 int8 convs)")
+                   help="int8: W8A8 dynamic-scale convs and dots (eelunet_tpu_torch.quantize)")
     p.add_argument("--tile", type=int, default=0,
                    help="serve at NATIVE input resolution via fixed-shape "
                    "sliding windows of this size (0 = resize to image_size)")
@@ -89,26 +94,53 @@ def main(argv=None):
     args = p.parse_args(argv)
     cfg = load_config(args)
 
-    if args.artifact:
-        raise NotImplementedError("--artifact (exported-program serving) is not ported "
-                                  "yet; see ROADMAP.md")
-    if not args.checkpoint:
-        p.error("--checkpoint is required")
     if cfg.mesh.data_axis > 1:
         raise NotImplementedError("multi-GPU serving (mesh.data_axis > 1) is not ported "
                                   "yet; see ROADMAP.md")
 
-    from eelunet_tpu_torch.inference import Predictor
     from eelunet_tpu_torch.serving import SegmentationService, make_server
 
     d = cfg.data
-    predictor = Predictor(
-        cfg.model, checkpoint=args.checkpoint, threshold=args.threshold,
-        normalize_mean=tuple(d.normalize_mean), normalize_std=tuple(d.normalize_std),
-        tta=cfg.tta, quantize=args.quantize or None, device=args.device,
-    )
+    if args.artifact:
+        if args.quantize:
+            p.error("--quantize applies when a model is built; exported artifacts are "
+                    "already traced: re-export with --quantize or serve from a checkpoint")
+        if args.tile:
+            p.error("--tile needs a checkpoint-backed Predictor; exported artifacts are "
+                    "fixed-shape programs")
+        if args.reload_watch > 0:
+            p.error("--reload_watch needs a checkpoint-backed Predictor")
+        from eelunet_tpu_torch.export import ExportedModel, read_meta
+        from eelunet_tpu_torch.registry import resolve_device
+
+        # The programs run on the device they were exported for; serve one
+        # only where this call asks for that device.
+        device = resolve_device(args.device)
+        exported_for = read_meta(args.artifact)["platforms"][0]
+        if exported_for != device.type:
+            p.error(f"{args.artifact} was exported for {exported_for!r}; this call asks for "
+                    f"--device {args.device!r}: re-export it there or pass --device "
+                    f"{exported_for}")
+        predictor = ExportedModel(args.artifact)
+        name = predictor.meta["model"]
+        image_size = tuple(predictor.meta["image_size"])
+        device, dtype = predictor.device, "exported"
+        # coalesced batches cannot exceed the largest exported bucket
+        args.max_batch = min(args.max_batch, max(predictor.meta["batch_sizes"]))
+    else:
+        if not args.checkpoint:
+            p.error("one of --checkpoint or --artifact is required")
+        from eelunet_tpu_torch.inference import Predictor
+
+        predictor = Predictor(
+            cfg.model, checkpoint=args.checkpoint, threshold=args.threshold,
+            normalize_mean=tuple(d.normalize_mean), normalize_std=tuple(d.normalize_std),
+            tta=cfg.tta, quantize=args.quantize or None, device=args.device,
+        )
+        name, image_size = cfg.model.name, d.image_size
+        device, dtype = predictor.device, cfg.model.dtype
     service = SegmentationService(
-        predictor, d.image_size,
+        predictor, image_size,
         max_batch=args.max_batch, window_ms=args.window_ms,
         threshold=args.threshold,
         tile=args.tile, tile_overlap=args.tile_overlap,
@@ -116,12 +148,11 @@ def main(argv=None):
     )
     if args.reload_watch > 0:
         start_checkpoint_watcher(service, args.checkpoint, args.reload_watch)
-    name = cfg.model.name
     server = make_server(service, name, args.host, args.port)
-    h, w = d.image_size
+    h, w = image_size
     print(f"serving {name} at {h}x{w} on "
           f"http://{server.server_address[0]}:{server.server_address[1]} "
-          f"(device={predictor.device}, dtype={cfg.model.dtype}, "
+          f"(device={device}, dtype={dtype}, "
           f"max_batch={args.max_batch}, window={args.window_ms}ms)", flush=True)
     # Orchestrators stop containers with SIGTERM: convert it to the same
     # graceful path as ^C (stop accepting, drain the batcher queue).

@@ -2,7 +2,9 @@
 
 Loads a checkpoint once, folds BN, casts the weights to the serving dtype on
 the device, and serves numpy-in / numpy-out batch prediction in the JAX
-package's layout: (B,H,W,3) images in, (B,H,W,1) out.
+package's layout: (B,H,W,3) images in, (B,H,W,1) out. A slim (physically
+pruned) checkpoint swaps in its slim module, unfolded; ``quantize="int8"``
+runs the W8A8 model of ``quantize.py``.
 """
 
 from __future__ import annotations
@@ -103,15 +105,23 @@ class Predictor:
 
         ``device``: torch device; None = "cuda". Without a card that raises
         a RuntimeError: the CPU is taken only when asked for (``"cpu"``).
-        ``mesh`` (multi-device serving) and ``quantize="int8"`` are not
-        ported yet and raise NotImplementedError."""
+
+        ``quantize="int8"``: every eligible conv and dot of the served model
+        (the folded one, as in the JAX package) runs W8A8 with dynamic
+        activation scales (``quantize.py``); ``quant_stats`` holds the
+        quantized op counts of the latest forward.
+
+        A slim (physically pruned) ``checkpoint``, a directory with
+        ``widths.json`` (``cli.prune --physical``), swaps in its slim module,
+        left unfolded as in the JAX package. ``mesh`` (multi-device serving)
+        is not ported yet and raises NotImplementedError."""
         if mesh is not None:
             raise NotImplementedError("multi-device serving (mesh=) is not ported yet; "
                                       "see ROADMAP.md")
         if quantize not in (None, "", "none", "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}; use 'int8'")
-        if quantize == "int8":
-            raise NotImplementedError("int8 quantization is not ported yet; see ROADMAP.md")
+        self.quantize = "int8" if quantize == "int8" else None
+        self.quant_stats: Optional[dict] = {} if self.quantize else None
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
         self.dtype = model_dtype(model_cfg)
@@ -147,15 +157,31 @@ class Predictor:
 
     # -- weights -------------------------------------------------------------
 
-    def stage_state_dict(self, state_dict) -> torch.nn.Module:
-        """Fold, build and cast a model from an unfolded port state_dict on
-        the host, WITHOUT touching the live one (no CUDA call). Returns the
-        handle for ``commit``."""
-        return build_serving_model(state_dict, self.model_cfg, "cpu", self._fold_bn)
+    def stage_state_dict(self, state_dict, widths=None, fold_bn=None) -> torch.nn.Module:
+        """Fold, build, cast (and with ``quantize`` quantize) a model from an
+        unfolded port state_dict on the host, WITHOUT touching the live one
+        (no CUDA call). ``widths``: a slim model's. Returns the handle for
+        ``commit``."""
+        model = build_serving_model(state_dict, self.model_cfg, "cpu",
+                                    self._fold_bn if fold_bn is None else fold_bn, widths)
+        if self.quantize:
+            from eelunet_tpu_torch.quantize import quantize_model
+
+            model = quantize_model(model, stats=self.quant_stats)
+        return model
 
     def stage(self, checkpoint: str) -> torch.nn.Module:
         """Phase 1 of a (hot) reload: read, convert and fold a checkpoint
-        off the serving path."""
+        off the serving path. A slim checkpoint builds its slim module,
+        unfolded (JAX ``inference.py:209-252``)."""
+        from eelunet_tpu_torch.prune_physical import is_slim_checkpoint, read_slim
+
+        if is_slim_checkpoint(checkpoint):
+            name, widths, sd = read_slim(checkpoint)
+            if name != self.model_cfg.name:
+                raise ValueError(f"{checkpoint} holds a slim {name!r} model; this Predictor "
+                                 f"serves {self.model_cfg.name!r}")
+            return self.stage_state_dict(sd, widths=widths, fold_bn=False)
         return self.stage_state_dict(read_checkpoint(checkpoint, self.model_cfg.name))
 
     def commit(self, staged: torch.nn.Module) -> None:

@@ -216,7 +216,7 @@ class EGEUNet(nn.Module):
         out = t5 = _gelu(max_pool2d(self.ebn5(self.encoder5(out))))        # H/32
         out = _gelu(self.encoder6(out))
 
-        dtype = self.final.weight.dtype
+        dtype = self.final.bias.dtype  # the compute type; an int8 head keeps its bias in it
         gt_pres = []
         stages = ((self.decoder1, self.dbn1, self.pred1, t5, 0.1, False),
                   (self.decoder2, self.dbn2, self.pred2, t4, 0.2, True),

@@ -92,7 +92,13 @@ class EAblock(nn.Module):
     """External attention (malunet.py:79-111): a 1x1 Conv1d C -> 4C over the
     flattened positions, softmax over the positions, L1 over the 4C keys,
     Conv1d 4C -> C back. ``linear_1`` starts as ``linear_0`` transposed and
-    then trains on its own (malunet.py:89): init-only coupling."""
+    then trains on its own (malunet.py:89): init-only coupling.
+
+    In the JAX package the two are raw (C, 4C) and (4C, C) matmul
+    parameters, not conv kernels: pruning leaves them out and int8
+    quantization counts them as dots (``MATMULS``)."""
+
+    MATMULS = ("linear_0", "linear_1")
 
     def __init__(self, c: int, device=None, dtype=None):
         super().__init__()

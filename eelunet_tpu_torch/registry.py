@@ -73,30 +73,41 @@ def create_model(model_cfg, bn_folded: bool = False, device=None, dtype=None,
     Every family takes ``model_cfg.in_channels`` (4 with
     ``data.add_canny_edge``). ``bn_folded``: built without the BNs that
     ``bnfold.fold_bn_eval`` folds (eelunet, unext, unext_s; a no-op for the
-    others). ``widths``: the EELUnet's per-group channel widths (None =
-    reference)."""
+    others). ``widths``: the channel widths of a narrow or physically pruned
+    model (None = reference): the EELUnet's per-group widths, or the U-Net's
+    ``enc_widths``/``bottleneck_widths``/``up_widths``/``dec_widths`` dict.
+    ``model_cfg.slim_init`` (a ``cli.prune --physical`` output) builds the
+    slim module from its ``widths.json``, as the JAX registry does."""
     name = model_cfg.name
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"model {name!r} is not ported to eelunet_tpu_torch yet; see ROADMAP.md")
     if name not in MODEL_REGISTRY:
         raise ValueError(f"Unsupported model type: {name!r} (choices: {sorted(MODEL_REGISTRY)})")
-    if getattr(model_cfg, "slim_init", ""):
-        raise NotImplementedError("slim (physically pruned) checkpoints are not ported yet; "
-                                  "see ROADMAP.md")
-    if widths is not None and name != "eelunet":
-        raise ValueError(f"widths= is the EELUnet's; {name!r} takes none")
+    slim_init = getattr(model_cfg, "slim_init", "")
+    if slim_init:
+        from eelunet_tpu_torch.prune_physical import SLIM_MODELS, read_widths
+
+        if name not in SLIM_MODELS:
+            raise ValueError(f"slim_init supports unet/eelunet, not {name!r}")
+        _, widths = read_widths(slim_init)
+    if widths is not None and name not in ("eelunet", "unet"):
+        raise ValueError(f"widths= is the EELUnet's or the U-Net's; {name!r} takes none")
     kw = dict(in_channels=model_cfg.in_channels, device=device, dtype=dtype)
     if name == "eelunet":
         from eelunet_tpu_torch.models.eelunet import EELUnet
 
+        if isinstance(widths, dict):
+            widths = tuple(sorted((str(k), int(v)) for k, v in widths.items()))
         model = EELUnet(out_channels=model_cfg.out_channels, mask_range=model_cfg.fft_mask_range,
                         highpass_impl=getattr(model_cfg, "highpass_impl", "auto"),
                         widths=widths, bn_folded=bn_folded, **kw)
     elif name == "unet":
         from eelunet_tpu_torch.models.unet import Unet
+        from eelunet_tpu_torch.prune_physical import unet_kwargs
 
-        model = Unet(out_channels=model_cfg.out_channels, **kw)
+        model = Unet(out_channels=model_cfg.out_channels,
+                     **(unet_kwargs(widths) if widths else {}), **kw)
     elif name == "unet++":
         from eelunet_tpu_torch.models.unetpp import UnetPlusPlus
 

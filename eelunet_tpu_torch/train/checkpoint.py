@@ -173,7 +173,11 @@ class CheckpointManager:
         """Full snapshot of ``state`` (a TrainState) under ``<name>_<tag>/``.
         ``background=True`` copies the state now and writes it on the
         worker."""
-        path = self.tag_path(tag)
+        return self.save_to(self.tag_path(tag), state, epoch, background)
+
+    def save_to(self, path: str, state, epoch: Optional[int] = None,
+                background: bool = False) -> str:
+        """Full snapshot of ``state`` in the directory ``path``."""
         ema = state.ema is not None
         enqueue = background and self._async is not None
         snap = _Snapshot(state.state_dict()) if enqueue else None

@@ -54,8 +54,6 @@ def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for the options of the JAX Trainer that
     the port does not have yet (``ROADMAP.md``)."""
     todo = []
-    if cfg.model.slim_init:
-        todo.append("slim checkpoints (model.slim_init)")
     if cfg.mesh.data_axis not in (-1, 1) or cfg.mesh.model_axis > 1 or cfg.mesh.spatial_axis > 1:
         todo.append("multi-GPU meshes (mesh.*_axis > 1)")
     if todo:
@@ -240,10 +238,18 @@ class Trainer:
     # -- state ---------------------------------------------------------------
     def init_state(self, steps_per_epoch: int = 1) -> TrainState:
         """Seeded PyTorch default init (on the CPU, from a generator), moved
-        to the device in channels_last; fresh optimizer and schedule."""
+        to the device in channels_last; fresh optimizer and schedule. With
+        ``model.slim_init`` the slim module (``create_model``) takes the
+        slim checkpoint's weights and BN statistics; the optimizer moments
+        start fresh, like the reference's weights-only finetune
+        (prune.py:276-278)."""
         cfg = self.cfg
         self.seed = cfg.seed if cfg.seed is not None else int(np.random.randint(0, 10000))
         init_weights(self.model, torch.Generator().manual_seed(self.seed))
+        if cfg.model.slim_init:
+            from eelunet_tpu_torch.prune_physical import read_slim
+
+            self.model.load_state_dict(read_slim(cfg.model.slim_init)[2], strict=True)
         self.model.to(self.device, memory_format=torch.channels_last)
         opt, sched = build_optimizer(cfg.optimizer, self.model.parameters(), steps_per_epoch)
         return TrainState(self.model, opt, sched, self.seed, cfg.optimizer.ema_decay)

@@ -215,11 +215,14 @@ def test_cli_train_then_evaluate_reproduces_the_metrics(tmp_path, capsys):
 
 
 def test_evaluate_refuses_what_is_not_ported(tmp_path):
+    """A mesh is still refused. Slim checkpoints are ported, and refuse the
+    Canny flags, as in the JAX package (a slim model has 3 input channels)."""
     slim = tmp_path / "slim"
     slim.mkdir()
-    (slim / "widths.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate_cli.main(["--device", "cpu", "--checkpoint", str(slim)])
+    (slim / "widths.json").write_text('{"model": "eelunet", "widths": {}}')
+    with pytest.raises(ValueError, match="not supported on the slim"):
+        evaluate_cli.main(["--device", "cpu", "--checkpoint", str(slim),
+                           "--set", "data.add_canny_edge=true"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         evaluate_cli.main(["--device", "cpu", "--set", "mesh.data_axis=2"])
 

@@ -601,3 +601,125 @@ def test_background_snapshot_under_in_place_updates_on_the_card(cuda, tmp_path):
     assert saved.keys() == want.keys()
     for k in want:
         assert torch.equal(saved[k].cpu(), want[k]), k
+
+
+# ------------------------------------------- slim widths, int8, slim on card
+
+# The slim EELUnet's high-pass sites: C = 32 and 96 (round_to 32 at amounts
+# 0.5 and 0.3 of the 64- and 128-wide edge stages), at test sizes.
+SLIM_CASES = [((2, 64, 64, 32), 20), ((2, 64, 64, 96), 20), ((1, 128, 96, 32), 12)]
+
+
+@pytest.mark.parametrize("dtype,tol,bwd_tol", [(torch.float32, 1e-4, 1e-5),
+                                               (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("shape,mask_range", SLIM_CASES)
+def test_kernels_at_slim_channel_counts(cuda, shape, mask_range, dtype, tol, bwd_tol):
+    """Kernels 1-4 against their twins at C = 32 and C = 96, forward and
+    backward, float32 and bfloat16 (PERF.md's bounds)."""
+    b, h, w, c = shape
+    x = _x(shape, dtype, cuda)
+    g = _x(shape, dtype, cuda, seed=1)
+    x3, g3 = x.view(b, h, w * c), g.view(b, h, w * c)
+    vr_t, vi_t, uhr, uhi, uwr, uwi, vwr, vwi = fft_cuda.factor_tensors(h, w, mask_range, dtype,
+                                                                       cuda)
+    f32 = fft_cuda.factor_tensors(h, w, mask_range, torch.float32, cuda)
+    with torch.inference_mode():
+        tk = fft_cuda.highpass_contract(x3, vr_t, vi_t)
+        tp = fft_cuda.highpass_contract_plain(x3, vr_t, vi_t)
+        s = fft_cuda.w_axis_middle(*tp, uwr, uwi, vwr, vwi, w, c)
+        ok_ = fft_cuda.highpass_expand(x3, uhr, uhi, *s)
+        op_ = fft_cuda.highpass_expand_plain(x3, uhr, uhi, *s)
+        uk, trk, tik = fft_cuda.highpass_bwd_contract(x3, g3, uhr, uhi, *s)
+        up, trp, tip = fft_cuda.highpass_bwd_contract_plain(x3, g3, uhr, uhi, *s)
+        r = fft_cuda.w_axis_middle(trp, tip, vwr.T, vwi.T, uwr.T, uwi.T, w, c)
+        dk = fft_cuda.highpass_bwd_expand(up, f32[0], f32[1], *r)
+        dp = fft_cuda.highpass_bwd_expand_plain(up, f32[0], f32[1], *r)
+    torch.cuda.synchronize()
+    assert _rel(tk[0], tp[0]) <= 1e-4 and _rel(tk[1], tp[1]) <= 1e-4
+    assert _rel(ok_, op_) <= tol
+    assert _rel(trk, trp) <= 1e-4 and _rel(tik, tip) <= 1e-4
+    assert _rel_l2(uk, up) <= bwd_tol and _rel_l2(dk, dp) <= bwd_tol
+
+
+@pytest.mark.parametrize("kind", ["conv3x3", "conv3x3_rgb", "conv1x1_head", "convt", "linear"])
+def test_int8_ops_equal_float64_twins_on_the_card(cuda, kind):
+    """The int8 ops' int products on the card (im2col and ``torch._int_mm``,
+    padded to its shape rules) equal the float64 twin with ``torch.equal``,
+    and the dequantized outputs equal those of the CPU's twin route."""
+    import copy
+
+    import torch.nn.functional as F
+    from torch import nn
+
+    from eelunet_tpu_torch.quantize import (
+        LAUNCHES,
+        im2col_nhwc,
+        int8_conv2d_plain,
+        quantize_model,
+        quantize_weight,
+        reset_launches,
+    )
+
+    torch.manual_seed(0)
+    m, x = {
+        "conv3x3": (nn.Conv2d(64, 64, 3, padding=1), torch.randn(2, 64, 40, 40)),
+        "conv3x3_rgb": (nn.Conv2d(3, 16, 3, padding=1), torch.randn(2, 3, 33, 31)),
+        "conv1x1_head": (nn.Conv2d(24, 1, 1), torch.randn(3, 24, 16, 16)),
+        "convt": (nn.ConvTranspose2d(32, 16, 2, stride=2), torch.randn(2, 32, 8, 8)),
+        "linear": (nn.Linear(64, 256), torch.randn(2, 5, 5, 64)),
+    }[kind]
+    x = x.contiguous(memory_format=torch.channels_last) if x.dim() == 4 and kind != "linear" \
+        else x
+    q_cpu = quantize_model(nn.Sequential(m))
+    q_gpu = copy.deepcopy(q_cpu).to(cuda)
+    reset_launches()
+    with torch.no_grad():
+        want = q_cpu(x)
+        got = q_gpu(x.to(cuda))
+    assert LAUNCHES["int8_mm"] >= 1
+    assert torch.equal(got.cpu(), want), (got.cpu() - want).abs().max()
+    if kind.startswith("conv3x3"):
+        xq = torch.randint(-127, 128, x.shape, dtype=torch.int8, device=cuda)
+        wq, _ = quantize_weight(m.weight.to(cuda), 0)
+        k8 = -(-wq[0].numel() // 8) * 8
+        cols = im2col_nhwc(xq.permute(0, 2, 3, 1).contiguous(), (3, 3), (1, 1), (1, 1),
+                           (1, 1), k8)
+        wmat = F.pad(wq.permute(0, 2, 3, 1).reshape(wq.shape[0], -1),
+                     (0, k8 - wq[0].numel()))
+        y = torch._int_mm(cols.reshape(-1, k8), wmat.t()).view(*cols.shape[:3], -1)
+        assert torch.equal(y, int8_conv2d_plain(xq, wq, 1, 1, 1).permute(0, 2, 3, 1))
+
+
+def test_slim_eelunet_on_the_card_matches_masked(cuda):
+    """A slim EELUnet (round_to 32 at amount 0.5) on the kernels equals its
+    masked full-width model on the card, float32, within JAX's slice bounds
+    (atol 3e-5, rtol 1e-4), at 64^2."""
+    from eelunet_tpu_torch.config import ModelConfig
+    from eelunet_tpu_torch.inference import random_state_dict
+    from eelunet_tpu_torch.prune import apply_masks
+    from eelunet_tpu_torch.prune_physical import (
+        eelunet_prune_masks,
+        physical_prune_eelunet,
+        slim_eelunet,
+    )
+    from eelunet_tpu_torch.registry import create_model
+
+    cfg = ModelConfig(name="eelunet")
+    sd = random_state_dict(cfg, seed=0)
+    model, _ = create_model(cfg)
+    model.load_state_dict(sd)
+    masks, _ = eelunet_prune_masks(sd, 0.5, 32)
+    apply_masks(model, masks)
+    slim_sd, widths = physical_prune_eelunet(model.state_dict(), 0.5, 32)
+    slim = slim_eelunet(widths)
+    slim.load_state_dict(slim_sd)
+    x = _x((2, 3, 64, 64), torch.float32, cuda).contiguous(memory_format=torch.channels_last)
+    model = model.to(cuda, memory_format=torch.channels_last).eval()
+    slim = slim.to(cuda, memory_format=torch.channels_last).eval()
+    fft_cuda.reset_launches()
+    with torch.inference_mode():
+        want, got = model(x), slim(x)
+    assert fft_cuda.LAUNCHES["highpass_contract"] == 4
+    assert widths["d2sum"] == 64 and widths["d1sum"] == 32
+    for g_, w_ in zip((got.seg, *got.aux), (want.seg, *want.aux)):
+        torch.testing.assert_close(g_, w_, atol=3e-5, rtol=1e-4)

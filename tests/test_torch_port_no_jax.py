@@ -29,6 +29,7 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     # every module of the serving, training and Canny slices, the families,
-    # and cli.predict, cli.pack, the packed and device-cached feeds and the
-    # profiler
-    assert n_modules >= 49, proc.stdout
+    # cli.predict, cli.pack, the packed and device-cached feeds, the
+    # profiler, and prune, prune_physical, quantize, export, cli.prune and
+    # cli.export
+    assert n_modules >= 55, proc.stdout

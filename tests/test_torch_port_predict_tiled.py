@@ -7,6 +7,7 @@ still refuses. The model and the tie rule: ``torch_port_predict.py``."""
 from __future__ import annotations
 
 import io
+import os
 
 import numpy as np
 import pytest
@@ -65,15 +66,18 @@ def test_predictor_tiled_and_tta_match_jax(setup, tile):
 
 
 def test_predict_refuses_what_is_not_ported(setup, tmp_path):
+    """``--quantize int8`` is ported and writes masks; a slim checkpoint
+    refuses the Canny flags, as in the JAX package; a missing checkpoint
+    and the Canny flags with ``--tile`` stay refused."""
     s = setup
     base = _args(s) + ["--device", "cpu", "--results_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        predict_cli.main(base + ["--checkpoint", s["npz"], "--quantize", "int8"])
+    out = predict_cli.main(base + ["--checkpoint", s["npz"], "--quantize", "int8"])
+    assert len(os.listdir(out)) == 5
     slim = tmp_path / "slim"
     slim.mkdir()
-    (slim / "widths.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        predict_cli.main(base + ["--checkpoint", str(slim)])
+    (slim / "widths.json").write_text('{"model": "unet", "widths": {}}')
+    with pytest.raises(ValueError, match="not supported on the slim"):
+        predict_cli.main(base + ["--checkpoint", str(slim), "--set", "data.canny_enhance=true"])
     with pytest.raises(FileNotFoundError):
         predict_cli.main(base + ["--checkpoint", str(tmp_path / "nope.npz")])
     with pytest.raises(ValueError, match="--tile"):

@@ -151,10 +151,18 @@ def test_predictor_without_a_card_raises():
 
 
 def test_out_of_scope_options_raise():
+    """A mesh (multi-device serving) is still refused. int8 and slim
+    checkpoints are ported: an unknown quantize mode and a ``slim_init``
+    without its ``widths.json`` raise, and ``quantize="int8"`` serves."""
     cfg = ModelConfig(name="eelunet")
-    with pytest.raises(NotImplementedError, match="int8"):
-        Predictor(cfg, quantize="int8", device="cpu")
+    with pytest.raises(ValueError, match="quantize"):
+        Predictor(cfg, quantize="int4", device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         Predictor(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="widths.json"):
         Predictor(ModelConfig(name="eelunet", slim_init="slim_dir"), device="cpu")
+    with pytest.raises(ValueError, match="slim_init supports unet/eelunet"):
+        Predictor(ModelConfig(name="unext_s", slim_init="slim_dir"), device="cpu")
+    quant = Predictor(ModelConfig(name="unext_s"), quantize="int8", device="cpu")
+    assert quant.predict_proba(np.zeros((1, 32, 32, 3), np.uint8)).shape == (1, 32, 32, 1)
+    assert quant.quant_stats["quantized_convs"] > 0

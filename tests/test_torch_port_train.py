@@ -255,6 +255,10 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu():
         Trainer(TrainConfig())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(apply_overrides(TrainConfig(), ["mesh.data_axis=2"]), device="cpu")
+    # slim checkpoints are ported: a slim_init without its widths.json is
+    # an error of the path, not a refusal
+    with pytest.raises(FileNotFoundError, match="widths.json"):
+        Trainer(apply_overrides(TrainConfig(), ["model.slim_init=no_such_dir"]), device="cpu")
 
 
 def test_trainer_names_the_options_it_ignores(tmp_path):
