@@ -137,6 +137,24 @@ Phases (any failure exits non-zero; none is skipped):
    batch of 3 equal to the Predictor on the low-rank high-pass, the
    artifact timed beside it, and an int8 artifact at bucket 1 equal to the
    int8 Predictor. Its entry points' launches join the JSON line's.
+13. Data parallelism, with ``torch.cuda.device_count()`` printed: (13a)
+   two ranks over gloo on card 0, spawned from here (full-width EELUnet,
+   512^2, bf16 autocast, global batch 8 = 4 per rank, phase 6's batches):
+   one DDP step from the state of a single-process b8 step, loss and
+   gradient norm within GRAD_TOL of it and the BN running statistics within
+   DDP_STATS_TOL, two more steps and one step of the Canny model with both
+   flags; each rank's launches (kernels 1-4 twice per step, kernel 5 and
+   the hysteresis twice per batch) and step time, two processes sharing a
+   card (no scaling figure); (13b) ``torchrun --standalone
+   --nproc_per_node=<cards> -m eelunet_tpu_torch.cli.train`` (NCCL) for 2
+   epochs on phase 7's tree and ``cli.evaluate`` under the same launcher on
+   its best tag: the recorded metrics (one rank on a one-card machine);
+   (13c) ``Predictor(mesh=create_mesh(-1, 1))`` over every card and a mesh
+   listing card 0 twice, at b16 and a ragged b13, against the single-device
+   Predictor at phase 10's bounds, kernels 1 and 2 launching twice per
+   shard, then ``cli.serve --set mesh.data_axis=-1`` answering requests.
+   Where only one card is present it says that launches across two
+   physical cards are not verified. Its launches join the JSON line's.
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the one before that the hysteresis
@@ -147,6 +165,7 @@ kernel's (not a TPU kernel's) time, check and launches; the last line is
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -930,13 +949,15 @@ def _server(ckpt: str, workdir: str, model_type: str, phase: str, extra=()):
 
 
 def phase_serve(ckpt: str, workdir: str, model_type: str = "eelunet", n_singles: int = 24,
-                phase: str = "4"):
-    """The main path: the serve CLI in a subprocess, ``n_singles`` concurrent
-    requests, one batched and one PNG. Returns its launches: 2 per forward
-    of each forward high-pass kernel for the EELUnet, 0 for the others."""
+                phase: str = "4", extra=()):
+    """The main path: the serve CLI in a subprocess (``extra`` arguments),
+    ``n_singles`` concurrent requests, one batched and one PNG. Returns its
+    launches: 2 per forward and card of the batch (``/v1/stats``
+    ``data_size``) of each forward high-pass kernel for the EELUnet, 0 for
+    the others."""
     from PIL import Image
 
-    with _server(ckpt, workdir, model_type, phase) as base:
+    with _server(ckpt, workdir, model_type, phase, extra) as base:
         rng = np.random.default_rng(SEED)
         singles = rng.integers(0, 256, (n_singles, 512, 512, 3), dtype=np.uint8)
         results, errors = [None] * len(singles), []
@@ -980,12 +1001,14 @@ def phase_serve(ckpt: str, workdir: str, model_type: str = "eelunet", n_singles:
 
         stats = json.loads(_http(base + "/v1/stats")[1])
         launches = stats["kernel_launches"]
-        print(f"[{phase}] {model_type}: {stats['requests']} requests in {stats['batches']} forwards, "
+        print(f"[{phase}] {model_type}: {stats['requests']} requests in {stats['batches']} forwards "
+              f"over {stats['data_size']} device(s), "
               f"{wall:.2f} s wall; device_ms {stats['device_ms']}; "
               f"latency_ms {stats['latency_ms']}; launches {launches}", flush=True)
         check(stats["requests"] == len(singles) + batch.shape[0] + 1, f"stats: {stats}")
+        shards = stats["data_size"]
         for name in HIGHPASS:
-            want = 2 * stats["batches"] if name in FWD and model_type == "eelunet" else 0
+            want = 2 * shards * stats["batches"] if name in FWD and model_type == "eelunet" else 0
             check(launches[name] == want,
                   f"{name}: {launches[name]} launches for {stats['batches']} forwards")
         return launches
@@ -1185,10 +1208,14 @@ def _kernels_vs_lowrank(phase: str, model, loss_fn, batch, f64_anchor: bool = Fa
     torch.cuda.empty_cache()
 
 
-def _cli(phase: str, module: str, args):
-    """Run ``python -m eelunet_tpu_torch.cli.<module> args`` to its end;
-    print its progress lines. Returns (stdout, its kernel launches, wall s)."""
-    cmd = [sys.executable, "-m", f"eelunet_tpu_torch.cli.{module}", *args]
+def _cli(phase: str, module: str, args, nproc: int = 0):
+    """Run ``python -m eelunet_tpu_torch.cli.<module> args`` to its end
+    (with ``nproc``, under ``torchrun --standalone --nproc_per_node=nproc``);
+    print its progress lines. Returns (stdout, its kernel launches, wall s);
+    under torchrun only rank 0 prints."""
+    launcher = ("-m", "torch.distributed.run", "--standalone",
+                f"--nproc_per_node={nproc}") if nproc else ()
+    cmd = [sys.executable, *launcher, "-m", f"eelunet_tpu_torch.cli.{module}", *args]
     t1 = time.monotonic()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
                           cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -1197,7 +1224,7 @@ def _cli(phase: str, module: str, args):
           + (proc.stdout + proc.stderr)[-4000:])
     for line in proc.stdout.splitlines():
         if line.startswith(("Epoch [", "Device:", "Training complete", "kernel launches",
-                            "Loaded", "Dice", "Mean IoU")):
+                            "Loaded", "Dice", "Mean IoU", "Mesh:", "Distributed")):
             print(f"[{phase}] {line}")
     launch_lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("kernel launches: ")]
     check(len(launch_lines) == 1, f"cli.{module} printed no launch counts")
@@ -2365,6 +2392,267 @@ def phase_compression(workdir: str, tree: str, best: str):
     return launches
 
 
+# ------------------------------------------------------- phase 13: data parallel
+
+# Phase 13a: one DDP step of two ranks on the one card (gloo) against the
+# single-process step at b8 from the same state. The BN running statistics
+# after it, relative L2 over every layer's means and over its variances.
+DDP_STATS_TOL = 2e-3
+
+
+def _ddp_cfg(workdir: str, canny: bool = False):
+    from eelunet_tpu_torch.config import TrainConfig, apply_overrides
+
+    return apply_overrides(TrainConfig(), [
+        "model.name=eelunet", "model.dtype=bfloat16", f"model.fft_mask_range={MASK_RANGE}",
+        "data.image_size=512", "data.batch_size=8", f"seed={SEED}",
+        f"save_dir={workdir}/ckpt_ddp", *(CANNY_FLAGS if canny else ())])
+
+
+def _grad_norm(model) -> float:
+    import torch
+
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(p.grad.double()) for p in model.parameters()])).item()
+
+
+def _bn_stats(model):
+    return {k: v.detach().float().cpu() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def ddp_rank(rank: int, workdir: str) -> None:
+    """One of phase 13a's two ranks (a subprocess on card 0, gloo): from the
+    saved state, one data-parallel step on its 4 rows of phase 6's first
+    batch, two more steps, then one step of the Canny model with both flags
+    behind the input chain. Writes its readings to ``ddp_rank<r>.json``."""
+    import torch
+
+    from eelunet_tpu_torch.data.augment import make_input_preprocess
+    from eelunet_tpu_torch.data.pipeline import process_rows
+    from eelunet_tpu_torch.ops import edge_cuda, fft_cuda
+    from eelunet_tpu_torch.parallel.distributed import (
+        all_reduce_sum_,
+        init_distributed,
+        shutdown_distributed,
+    )
+    from eelunet_tpu_torch.train.trainer import Trainer
+
+    check(init_distributed(f"file://{workdir}/ddp_rendezvous", 2, rank, backend="gloo",
+                           device="cuda:0"), "init_distributed returned False")
+    dev = torch.device("cuda", 0)
+    rows = process_rows(rank, 2, 8)
+    raw = [(torch.from_numpy(x[rows]).to(dev), torch.from_numpy(y[rows]).to(dev))
+           for x, y in _train_batches(2, 8, SEED + 4)]
+    cfg = _ddp_cfg(workdir)
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(steps_per_epoch=6)
+    state.model.load_state_dict(torch.load(os.path.join(workdir, "ddp_init.pt"),
+                                           map_location=dev, weights_only=True))
+    preprocess = make_input_preprocess(cfg.data)
+    batches = [preprocess(x, y) for x, y in raw]
+    step = trainer._get_step("train")
+    fft_cuda.reset_launches()
+    edge_cuda.reset_launches()
+    losses, ms = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, ok = step(state, *batches[i % 2])
+        glob = float(all_reduce_sum_(loss.detach().clone())) / 2
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(ok, f"rank {rank}: step {i} skipped")
+        if i == 0:
+            gnorm, stats = _grad_norm(state.model), _bn_stats(state.model)
+        losses.append(glob)
+    out = {"losses": losses, "gnorm": gnorm, "ms": ms}
+    ref = torch.load(os.path.join(workdir, "ddp_single.pt"), weights_only=True)["stats"]
+    for kind in ("running_mean", "running_var"):
+        keys = [k for k in ref if k.endswith(kind)]
+        got, want = (torch.cat([t[k].flatten() for k in keys]) for t in (stats, ref))
+        out[kind] = rel_l2(got, want)
+    worst = max(ref, key=lambda k: ((stats[k] - ref[k]).abs().max() / ref[k].abs().max()).item())
+    out["worst"] = [worst, (stats[worst] - ref[worst]).abs().max().item(),
+                    ref[worst].abs().max().item()]
+    del state, trainer, batches, step
+    gc.collect()  # the DDP wrapper's hooks hold the model in cycles
+    torch.cuda.empty_cache()
+
+    cfg_c = _ddp_cfg(workdir, canny=True)
+    trainer = Trainer(cfg_c, device="cuda")
+    state = trainer.init_state(steps_per_epoch=1)
+    loss, ok = trainer._get_step("train")(state, *make_input_preprocess(cfg_c.data)(*raw[0]))
+    out["canny_loss"] = float(all_reduce_sum_(loss.detach().clone())) / 2
+    torch.cuda.synchronize()
+    out["launches"] = {**fft_cuda.LAUNCHES, **edge_cuda.LAUNCHES}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(workdir, f"ddp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    shutdown_distributed()
+
+
+def _phase13_ddp_step(workdir: str):
+    """13a: the single-process step at b8 from a fresh state (saved), then
+    the two ranks in subprocesses on the one card."""
+    import torch
+
+    from eelunet_tpu_torch.data.augment import make_input_preprocess
+    from eelunet_tpu_torch.train.trainer import Trainer, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = _ddp_cfg(workdir)
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(steps_per_epoch=6)
+    torch.save(state.model.state_dict(), os.path.join(workdir, "ddp_init.pt"))
+    x, y = _train_batches(1, 8, SEED + 4)[0]
+    images, labels = make_input_preprocess(cfg.data)(torch.from_numpy(x).to(dev),
+                                                      torch.from_numpy(y).to(dev))
+    loss, _ = make_train_step(trainer.loss_fn, trainer.amp_dtype)(state, images, labels)
+    single = {"loss": loss.item(), "gnorm": _grad_norm(state.model)}
+    torch.save({"stats": _bn_stats(state.model)}, os.path.join(workdir, "ddp_single.pt"))
+    del state, trainer, images, labels, loss
+    torch.cuda.empty_cache()
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+            "chip_smoke.ddp_rank(int(sys.argv[1]), sys.argv[2])")
+    logs = [open(os.path.join(workdir, f"ddp_rank{r}.log"), "w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), workdir], stdout=logs[r],
+                              stderr=subprocess.STDOUT, cwd=root) for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for r, rc in enumerate(rcs):
+        check(rc == 0, f"13a rank {r} exited with {rc}:\n"
+              + open(os.path.join(workdir, f"ddp_rank{r}.log")).read()[-4000:])
+    ranks = [json.load(open(os.path.join(workdir, f"ddp_rank{r}.json"))) for r in range(2)]
+    tol = GRAD_TOL["bfloat16"]
+    d_loss = abs(ranks[0]["losses"][0] - single["loss"]) / abs(single["loss"])
+    d_g = abs(ranks[0]["gnorm"] - single["gnorm"]) / single["gnorm"]
+    print(f"[13a] 2 ranks (gloo) on card 0, 512^2 global b8 (4 per rank) bf16: first step "
+          f"loss {ranks[0]['losses'][0]:.6f} vs single-process b8 {single['loss']:.6f} (rel "
+          f"{d_loss:.2e}), grad norm {ranks[0]['gnorm']:.6f} vs {single['gnorm']:.6f} (rel "
+          f"{d_g:.2e}; bound {tol:g}, GRAD_TOL); BN running statistics, relative L2 over all "
+          f"layers: means {[round(r['running_mean'], 8) for r in ranks]}, variances "
+          f"{[round(r['running_var'], 8) for r in ranks]} (bound {DDP_STATS_TOL:g}; the buffer "
+          f"farthest in max|d|/max|ref|: {ranks[0]['worst']}); losses "
+          f"{[round(v, 4) for v in ranks[0]['losses']]}; Canny step (both flags) loss "
+          f"{ranks[0]['canny_loss']:.4f}; step ms per rank {[[round(t, 1) for t in r['ms']] for r in ranks]} "
+          f"(two processes sharing one card over gloo: no scaling figure); peak GiB per rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]}", flush=True)
+    check(d_loss <= tol and d_g <= tol, "13a: DDP step vs single-process step too far")
+    check(all(max(r["running_mean"], r["running_var"]) <= DDP_STATS_TOL for r in ranks),
+          "13a: BN running statistics")
+    check(all(np.isfinite(r["losses"] + [r["canny_loss"]]).all() for r in ranks),
+          "13a: non-finite loss")
+    check(abs(ranks[0]["gnorm"] - ranks[1]["gnorm"]) <= 1e-6 * ranks[0]["gnorm"],
+          "13a: the ranks' reduced gradients differ")
+    want = {**{k: 2 * 4 for k in HIGHPASS}, "fused_canny": 2, "hysteresis": 2}
+    for r, out in enumerate(ranks):
+        print(f"[13a] rank {r} launches {out['launches']} (3 steps + the Canny step: kernels 1-4 "
+              f"twice per step, kernel 5 and the hysteresis twice per batch)")
+        check(out["launches"] == want, f"13a rank {r} launches {out['launches']}, want {want}")
+    return {k: sum(r["launches"].get(k, 0) for r in ranks) for k in (*KERNELS, "hysteresis")}
+
+
+def _phase13_torchrun(workdir: str, tree: str, n: int):
+    """13b: cli.train and cli.evaluate under torchrun, one rank per card
+    (NCCL)."""
+    save, logs = os.path.join(workdir, "ckpt_torchrun"), os.path.join(workdir, "runs_torchrun")
+    out, trained, wall = _cli("13b", "train", _train_args(tree, save, logs), nproc=n)
+    check(f"over {n} device(s)" in out, "13b: no mesh line over the ranks")
+    want = {k: 2 * (CLI_FORWARDS if k in FWD else CLI_STEPS) for k in HIGHPASS}
+    want.update(fused_canny=0, hysteresis=0, conv3x3=0)
+    check(trained == want, f"13b cli.train launches (rank 0) {trained}, want {want}")
+    hist, best = _history(os.path.join(save, "eelunet"))
+    out_e, evaluated, wall_e = _cli("13b", "evaluate", [
+        "--model_type", "eelunet", "--data_dir", tree, "--image_size", "512",
+        "--batch_size", "8", "--set", "model.dtype=bfloat16", "--seed", str(SEED),
+        "--checkpoint", best], nproc=n)
+    metrics = json.loads(next(ln for ln in out_e.splitlines()
+                              if ln.startswith("metrics: ")).split(": ", 1)[1])
+    recorded = hist["metrics"][int(np.argmin(hist["val_loss"]))]
+    diff = max(abs(metrics[k] - recorded[k]) for k in recorded)
+    print(f"[13b] torchrun --nproc_per_node={n} (NCCL): cli.train {wall:.1f} s wall for 2 "
+          f"epochs, launches (rank 0) {trained}; cli.evaluate on its best tag {wall_e:.1f} s, "
+          f"launches {evaluated}; metrics vs the training run's max|d| {diff:.3e}"
+          + ("; one card: one rank, so NCCL across cards is not exercised here" if n == 1
+             else ""), flush=True)
+    check(diff <= (0.0 if n == 1 else 1e-5),
+          f"13b cli.evaluate {metrics} != the training run's {recorded}")
+    return {k: trained[k] + evaluated[k] for k in (*KERNELS, "hysteresis")}
+
+
+def _phase13_mesh_predictor(best: str, n: int):
+    """13c: the multi-device Predictor over every card, and over a mesh that
+    lists card 0 twice, against the single-device Predictor."""
+    import torch
+
+    from eelunet_tpu_torch.config import ModelConfig
+    from eelunet_tpu_torch.inference import Predictor
+    from eelunet_tpu_torch.ops import fft_cuda
+    from eelunet_tpu_torch.parallel.mesh import create_mesh
+
+    cfg = ModelConfig(name="eelunet", dtype="bfloat16")
+    single = Predictor(cfg, checkpoint=best, device="cuda")
+    u8 = np.random.default_rng(SEED + 13).integers(0, 256, (16, 512, 512, 3), dtype=np.uint8)
+    want = {b: single.predict_proba(u8[:b]) for b in (16, 13)}
+    for name, mesh in (("every card", create_mesh(-1, 1)),
+                       ("card 0 twice", create_mesh(-1, 1, devices=["cuda:0", "cuda:0"]))):
+        pred = Predictor(cfg, checkpoint=best, mesh=mesh, device="cuda")
+        shards = pred.data_size
+        for b in (16, 13):
+            fft_cuda.reset_launches()
+            got = pred.predict_proba(u8[:b])
+            launches = dict(fft_cuda.LAUNCHES)
+            d = np.abs(got - want[b])
+            flips = float(((got > 0.5) != (want[b] > 0.5)).mean())
+            print(f"[13c] mesh over {name} ({shards} shard(s)), b{b}: vs the single-device "
+                  f"Predictor mean|d prob| {d.mean():.3e}, max {d.max():.3e}, masks differing "
+                  f"{flips:.3e} (bounds {FAMILY_TOL}); launches {launches}", flush=True)
+            check(got.shape == (b, 512, 512, 1) and bool(np.isfinite(got).all()),
+                  f"13c: bad output {got.shape}")
+            check(d.mean() <= FAMILY_TOL["mean"] and flips <= FAMILY_TOL["mask"],
+                  f"13c {name} b{b}: too far from the single-device Predictor")
+            check(launches == {k: 2 * shards if k in FWD else 0 for k in HIGHPASS},
+                  f"13c {name} b{b}: launches {launches}, want 2 per shard")
+        del pred
+        torch.cuda.empty_cache()
+    if n == 1:
+        print("[13c] one card: launches across two physical cards are not verified on this "
+              "machine (the mesh that lists card 0 twice runs both shards on it)", flush=True)
+
+
+def phase_multidevice(workdir: str, tree: str, best: str):
+    """Phase 13: data parallelism (module docstring). Returns the launches
+    of its main paths: the two ranks of 13a, the torchrun runs of 13b and
+    cli.serve with every card in 13c."""
+    import torch
+
+    n = torch.cuda.device_count()
+    print(f"[13] torch.cuda.device_count() = {n}", flush=True)
+    t0 = time.monotonic()
+    torch.cuda.empty_cache()
+    launches = _phase13_ddp_step(workdir)
+    t1 = time.monotonic()
+    for k, v in _phase13_torchrun(workdir, tree, n).items():
+        launches[k] += v
+    t2 = time.monotonic()
+    _phase13_mesh_predictor(best, n)
+    served = phase_serve(best, workdir, n_singles=6, phase="13c",
+                         extra=("--set", "mesh.data_axis=-1"))
+    for k, v in served.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"[13] data-parallel phase: {time.monotonic() - t0:.1f} s (13a {t1 - t0:.1f}, 13b "
+          f"{t2 - t1:.1f}, 13c {time.monotonic() - t2:.1f}); launches {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2388,10 +2676,12 @@ def main() -> int:
         canny, canny_best = phase_canny_path(workdir, tree, step["step_ms"])
         families = phase_families(workdir, tree)
         multiclass = phase_multiclass(workdir, tree, canny_best)
-        compression = phase_compression(workdir, tree, os.path.join(
-            workdir, "ckpt", "eelunet", "eelunet_best.npz"))
+        best = os.path.join(workdir, "ckpt", "eelunet", "eelunet_best.npz")
+        compression = phase_compression(workdir, tree, best)
+        multidevice = phase_multidevice(workdir, tree, best)
     launches = {k: served.get(k, 0) + trained[k] + canny[k] + families[k] + multiclass[k]
-                + compression.get(k, 0) for k in (*KERNELS, "hysteresis")}
+                + compression.get(k, 0) + multidevice.get(k, 0)
+                for k in (*KERNELS, "hysteresis")}
     print(f"[8] all phases passed in {time.monotonic() - t0:.1f} s")
     hyst = record.pop("hysteresis")
     print(f"[3c] hysteresis (csrc/canny.cu hysteresis_kernel; the JAX package's lax.while_loop, "

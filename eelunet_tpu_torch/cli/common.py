@@ -81,7 +81,13 @@ def build_loaders(cfg: TrainConfig, device=None):
 
     ``data.packed``: ``data_dir`` is a ``cli.pack`` output (memmaps).
     ``data.device_cache``: the splits are uploaded once to ``device`` (None =
-    "cuda") and each batch is a gather there (``data/device_cache.py``)."""
+    "cuda") and each batch is a gather there (``data/device_cache.py``).
+
+    Under a process group the train loader yields this rank's rows of each
+    global batch (``process_shard``, with ``accum_steps``; the seed must be
+    the same on every rank, ``sync_seed``), and val and test stay whole on
+    every rank, as in the JAX package (``eelunet_tpu/cli/common.py:113-142``).
+    The device cache is single-process only: a group streams."""
     d = cfg.data
     num_classes = cfg.model.out_channels
     if d.packed:
@@ -107,8 +113,10 @@ def build_loaders(cfg: TrainConfig, device=None):
         test = make_folder_dataset(d, "test", num_classes)
     seed = cfg.seed if cfg.seed is not None else 0
     tr_idx, va_idx = train_val_split(len(full), d.val_fraction, seed)
+    from eelunet_tpu_torch.parallel.distributed import process_shard_spec
 
-    if d.device_cache:
+    shard = process_shard_spec()
+    if d.device_cache and shard is None:
         from eelunet_tpu_torch.data.device_cache import DeviceCache, DeviceCachedLoader
         from eelunet_tpu_torch.registry import resolve_device
 
@@ -123,8 +131,10 @@ def build_loaders(cfg: TrainConfig, device=None):
 
     def mk(ds, idx, shuffle):
         return DataLoader(ds, d.batch_size, shuffle=shuffle, seed=seed,
-                          drop_remainder=d.drop_remainder and shuffle,
-                          num_workers=d.num_workers, indices=idx)
+                          drop_remainder=(d.drop_remainder or shard is not None) and shuffle,
+                          num_workers=d.num_workers, indices=idx,
+                          process_shard=shard if shuffle else None,
+                          accum_steps=cfg.accum_steps if shuffle else 1)
 
     return mk(full, tr_idx, True), mk(full, va_idx, False), mk(test, None, False)
 
@@ -144,6 +154,24 @@ def slim_config(cfg: TrainConfig, checkpoint: str, path_name: str) -> TrainConfi
     name, _ = read_widths(checkpoint)
     model = dataclasses.replace(cfg.model, name=name, slim_init=checkpoint)
     return dataclasses.replace(cfg, model=model)
+
+
+def serving_mesh(cfg, device):
+    """The mesh a single-process entry point serves on (counterpart of
+    ``eelunet_tpu/cli/serve.py:118-128``): every card of the process along
+    ``data`` when more than one is present, or the ``mesh.data_axis`` asked
+    for; None for one device. Refuses the ``model`` and ``spatial`` axes."""
+    import torch
+
+    from eelunet_tpu_torch.parallel.mesh import NOT_PORTED_AXES, create_mesh
+
+    if cfg.mesh.model_axis > 1 or cfg.mesh.spatial_axis > 1:
+        raise NotImplementedError(NOT_PORTED_AXES)
+    cards = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+    if cards > 1 or cfg.mesh.data_axis > 1:
+        devices = None if torch.device(device).type == "cuda" else [device]
+        return create_mesh(cfg.mesh.data_axis, 1, devices=devices)
+    return None
 
 
 def kernel_launches() -> Dict[str, int]:

@@ -15,7 +15,10 @@ device-side input chain. A slim checkpoint (``cli.prune --physical``'s
 module; the Canny flags are refused there, as in the JAX package. A
 multi-class model (``--set model.out_channels=C``, masks of class ids)
 prints the macro metrics, then a per-class table. Runs on the CUDA card;
-``--device cpu`` is the only way onto the CPU.
+``--device cpu`` is the only way onto the CPU. Under ``torchrun`` (one
+process per card) each batch whose rows divide the ranks is split among
+them and the metric counts are summed over the ranks (``Trainer.evaluate``);
+only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -43,14 +46,25 @@ def main(argv=None):
     args = p.parse_args(argv)
     cfg = load_config(args)
 
+    from eelunet_tpu_torch.parallel.distributed import (
+        init_distributed,
+        is_primary,
+        shutdown_distributed,
+    )
+    from eelunet_tpu_torch.parallel.mesh import create_mesh
     from eelunet_tpu_torch.prune_physical import is_slim_checkpoint
-    from eelunet_tpu_torch.train.trainer import Trainer
+    from eelunet_tpu_torch.train.trainer import Trainer, check_supported
 
     slim = is_slim_checkpoint(args.checkpoint)
     if slim:
         cfg = slim_config(cfg, args.checkpoint, "evaluate")
 
-    trainer = Trainer(cfg, device=args.device)  # refuses what is not ported, first
+    check_supported(cfg)  # refuses what is not ported, first
+    distributed = init_distributed(device=args.device)
+    mesh = create_mesh(cfg.mesh.data_axis, cfg.mesh.model_axis, cfg.mesh.spatial_axis,
+                       devices=None if distributed else [args.device])
+    trainer = Trainer(cfg, device=args.device, mesh=mesh)
+    say = print if is_primary() else (lambda *a, **k: None)
     d = cfg.data
     ds = make_folder_dataset(d, args.split, cfg.model.out_channels)
     # Never drop tail samples: the metrics cover the whole split
@@ -58,39 +72,40 @@ def main(argv=None):
     loader = DataLoader(ds, d.batch_size, num_workers=d.num_workers, drop_remainder=False)
     state = trainer.init_state()  # a slim checkpoint's weights load here (slim_init)
     if slim:
-        print(f"Loaded slim (physically pruned) weights from {args.checkpoint}")
+        say(f"Loaded slim (physically pruned) weights from {args.checkpoint}")
     elif args.checkpoint and os.path.exists(args.checkpoint):
         state.model.load_state_dict(read_checkpoint(args.checkpoint, trainer.cfg.model.name),
                                     strict=True)
-        print(f"Loaded model weights from {args.checkpoint}")
+        say(f"Loaded model weights from {args.checkpoint}")
     elif args.checkpoint:
-        print(f"Checkpoint not found at {args.checkpoint}. Evaluating untrained model.")
+        say(f"Checkpoint not found at {args.checkpoint}. Evaluating untrained model.")
 
-    print(f"Evaluation date: {datetime.now().strftime('%Y%m%d_%H%M%S')}")
-    print(f"Model: {cfg.model.name}" + (" (slim)" if slim else ""))
+    say(f"Evaluation date: {datetime.now().strftime('%Y%m%d_%H%M%S')}")
+    say(f"Model: {cfg.model.name}" + (" (slim)" if slim else ""))
     m, acc = trainer.evaluate(state, loader, return_accum=True)
-    print("Evaluation Metrics:")
-    print(f"Pixel Accuracy: {m['pixel_accuracy']:.4f}")
-    print(f"Precision: {m['precision']:.4f}")
-    print(f"Recall: {m['recall']:.4f}")
-    print(f"F1 Score: {m['f1_score']:.4f}")
-    print(f"IoU (foreground): {m['iou']:.4f}")
-    print(f"Dice Coefficient (foreground): {m['dice']:.4f}")
-    print(f"Mean IoU: {m['miou']:.4f}")
-    print(f"Boundary F1 Score: {m['boundary_f1']:.4f}")
-    print(f"mDice: {m['mdice']:.4f}")
+    say("Evaluation Metrics:")
+    say(f"Pixel Accuracy: {m['pixel_accuracy']:.4f}")
+    say(f"Precision: {m['precision']:.4f}")
+    say(f"Recall: {m['recall']:.4f}")
+    say(f"F1 Score: {m['f1_score']:.4f}")
+    say(f"IoU (foreground): {m['iou']:.4f}")
+    say(f"Dice Coefficient (foreground): {m['dice']:.4f}")
+    say(f"Mean IoU: {m['miou']:.4f}")
+    say(f"Boundary F1 Score: {m['boundary_f1']:.4f}")
+    say(f"mDice: {m['mdice']:.4f}")
     if isinstance(acc, MetricAccumMC):
         # multi-class: the per-class rows behind the macro scalars
         pc = per_class_metrics(acc)
-        print("Per-class metrics:")
-        print("| class | IoU | Dice | precision | recall | support |")
+        say("Per-class metrics:")
+        say("| class | IoU | Dice | precision | recall | support |")
         for c in range(len(pc["iou"])):
-            print(f"| {c} | {pc['iou'][c]:.4f} | {pc['dice'][c]:.4f} | "
-                  f"{pc['precision'][c]:.4f} | {pc['recall'][c]:.4f} | "
-                  f"{int(pc['support'][c])} |")
+            say(f"| {c} | {pc['iou'][c]:.4f} | {pc['dice'][c]:.4f} | "
+                f"{pc['precision'][c]:.4f} | {pc['recall'][c]:.4f} | "
+                f"{int(pc['support'][c])} |")
     # Unrounded, for scripts that compare a run with the training history.
-    print("metrics: " + json.dumps(m))
-    print("kernel launches: " + json.dumps(kernel_launches()), flush=True)
+    say("metrics: " + json.dumps(m))
+    say("kernel launches: " + json.dumps(kernel_launches()), flush=True)
+    shutdown_distributed()
     return m
 
 

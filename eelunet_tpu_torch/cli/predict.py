@@ -24,6 +24,10 @@ size through ``Predictor.predict_tiled``; the Canny flags are refused there.
 unfolded; the Canny flags are refused there, as in the JAX package. Runs
 on the CUDA card; ``--device cpu`` is the only way onto the CPU. The last
 line is the run's ``kernel launches:``.
+
+With more than one card (or ``--set mesh.data_axis=N``) each batch is split
+across the cards of the process (``Predictor(mesh=...)``). Under ``torchrun``
+every rank predicts on its own card and only rank 0 writes and prints.
 """
 
 from __future__ import annotations
@@ -43,6 +47,17 @@ from eelunet_tpu_torch.cli.common import (
     slim_config,
     wants_raw_images,
 )
+from eelunet_tpu_torch.parallel.distributed import (
+    init_distributed,
+    is_primary,
+    shutdown_distributed,
+)
+
+
+def say(*args, **kwargs) -> None:
+    """``print`` on rank 0 (every print of a single-process run)."""
+    if is_primary():
+        print(*args, **kwargs)
 
 
 def save_mask(pred01: np.ndarray, path: str, multiclass: bool = False) -> None:
@@ -58,17 +73,26 @@ def save_mask(pred01: np.ndarray, path: str, multiclass: bool = False) -> None:
 def _out_dir(args, cfg) -> str:
     out = os.path.join(args.results_dir,
                        f"{cfg.model.name}_{datetime.now().strftime('%Y%m%d_%H%M%S')}")
-    os.makedirs(out, exist_ok=True)
+    if is_primary():
+        os.makedirs(out, exist_ok=True)
     return out
 
 
+def _save(pred01: np.ndarray, path: str, multiclass: bool) -> None:
+    if is_primary():  # under a process group only rank 0 writes
+        save_mask(pred01, path, multiclass)
+
+
 def _predictor(args, cfg, model_cfg):
+    from eelunet_tpu_torch.cli.common import serving_mesh
     from eelunet_tpu_torch.inference import Predictor
+    from eelunet_tpu_torch.parallel.distributed import process_count
 
     d = cfg.data
+    mesh = serving_mesh(cfg, args.device) if process_count() == 1 else None
     return Predictor(model_cfg, checkpoint=args.checkpoint, threshold=cfg.threshold,
                      tta=cfg.tta, normalize_mean=tuple(d.normalize_mean),
-                     normalize_std=tuple(d.normalize_std),
+                     normalize_std=tuple(d.normalize_std), mesh=mesh,
                      quantize=args.quantize or None, device=args.device)
 
 
@@ -92,9 +116,9 @@ def _predict_tiled(args, cfg) -> str:
     for i in range(len(ds)):
         image, _ = ds[i]
         mask = predictor.predict_tiled(image[None], tile=args.tile, overlap=args.tile_overlap)
-        save_mask(mask[0, :, :, 0], os.path.join(out_dir, f"pred_{i}.png"),
-                  multiclass=cfg.model.out_channels > 1)
-    print(f"Saved {len(ds)} native-resolution masks to {out_dir}")
+        _save(mask[0, :, :, 0], os.path.join(out_dir, f"pred_{i}.png"),
+              multiclass=cfg.model.out_channels > 1)
+    say(f"Saved {len(ds)} native-resolution masks to {out_dir}")
     return out_dir
 
 
@@ -117,10 +141,10 @@ def _predict_resized(args, cfg) -> str:
         x, _ = preprocess(images, labels)
         masks = predictor.predict(x)
         for b in range(masks.shape[0]):
-            save_mask(masks[b, :, :, 0], os.path.join(out_dir, f"pred_{i}.png"),
-                      multiclass=model_cfg.out_channels > 1)
+            _save(masks[b, :, :, 0], os.path.join(out_dir, f"pred_{i}.png"),
+                  multiclass=model_cfg.out_channels > 1)
             i += 1
-    print(f"Saved {i} masks to {out_dir}")
+    say(f"Saved {i} masks to {out_dir}")
     return out_dir
 
 
@@ -146,8 +170,10 @@ def main(argv=None):
     if is_slim_checkpoint(args.checkpoint) and not args.tile:
         # the model the sidecar names; the Predictor builds it unfolded
         cfg = slim_config(cfg, args.checkpoint, "predict")
+    init_distributed(device=args.device)
     out_dir = _predict_tiled(args, cfg) if args.tile else _predict_resized(args, cfg)
-    print("kernel launches: " + json.dumps(kernel_launches()), flush=True)
+    say("kernel launches: " + json.dumps(kernel_launches()), flush=True)
+    shutdown_distributed()
     return out_dir
 
 

@@ -14,6 +14,11 @@ or a slim checkpoint (``cli.prune --physical``), served by its slim module.
 DIR`` serves a ``cli.export`` artifact instead, with no model code, through
 the same micro-batcher. Protocol and batching semantics:
 ``eelunet_tpu_torch/serving.py``.
+
+With more than one card, or ``--set mesh.data_axis=N``, each batch is split
+across the cards (``Predictor(mesh=...)``, one replica per card; the bucket
+rounds up to a multiple of the data size); ``/v1/stats`` reports
+``data_size``. ``--set mesh.data_axis=-1`` takes every card.
 """
 
 from __future__ import annotations
@@ -94,10 +99,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     cfg = load_config(args)
 
-    if cfg.mesh.data_axis > 1:
-        raise NotImplementedError("multi-GPU serving (mesh.data_axis > 1) is not ported "
-                                  "yet; see ROADMAP.md")
-
     from eelunet_tpu_torch.serving import SegmentationService, make_server
 
     d = cfg.data
@@ -110,6 +111,9 @@ def main(argv=None):
                     "fixed-shape programs")
         if args.reload_watch > 0:
             p.error("--reload_watch needs a checkpoint-backed Predictor")
+        if cfg.mesh.data_axis > 1:
+            p.error("an exported artifact runs on one device; serve a checkpoint to split "
+                    "batches across cards (mesh.data_axis)")
         from eelunet_tpu_torch.export import ExportedModel, read_meta
         from eelunet_tpu_torch.registry import resolve_device
 
@@ -130,15 +134,19 @@ def main(argv=None):
     else:
         if not args.checkpoint:
             p.error("one of --checkpoint or --artifact is required")
+        from eelunet_tpu_torch.cli.common import serving_mesh
         from eelunet_tpu_torch.inference import Predictor
+        from eelunet_tpu_torch.registry import resolve_device
 
+        # batch-parallel serving over the cards (the JAX CLI's rule)
+        mesh = serving_mesh(cfg, resolve_device(args.device))
         predictor = Predictor(
             cfg.model, checkpoint=args.checkpoint, threshold=args.threshold,
             normalize_mean=tuple(d.normalize_mean), normalize_std=tuple(d.normalize_std),
-            tta=cfg.tta, quantize=args.quantize or None, device=args.device,
+            mesh=mesh, tta=cfg.tta, quantize=args.quantize or None, device=args.device,
         )
         name, image_size = cfg.model.name, d.image_size
-        device, dtype = predictor.device, cfg.model.dtype
+        device, dtype = ",".join(map(str, predictor.devices)), cfg.model.dtype
     service = SegmentationService(
         predictor, image_size,
         max_batch=args.max_batch, window_ms=args.window_ms,

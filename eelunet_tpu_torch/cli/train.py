@@ -10,6 +10,17 @@ cpu`` is the only way onto the CPU. Checkpoints go to ``save_dir/<model>/``
 (``train/checkpoint.py``); a best tag such as
 ``checkpoints/unext_s/unext_s_best.npz`` is served with ``python -m
 eelunet_tpu_torch.cli.serve --model_type unext_s --checkpoint`` as it is.
+
+Data-parallel training, one process per card, on DDP:
+
+    torchrun --standalone --nproc_per_node=<cards> -m eelunet_tpu_torch.cli.train \
+        --model_type eelunet --data_dir D --image_size 512 --batch_size 16 \
+        --set model.dtype=bfloat16
+
+``--batch_size`` is the global batch: each rank trains on its share, and a
+step equals the single-process step on the whole batch (global-batch BN
+statistics, gradients averaged over the ranks). ``--device cpu`` runs the
+ranks on the CPU over gloo. Only rank 0 prints and writes.
 """
 
 from __future__ import annotations
@@ -49,17 +60,41 @@ def main(argv=None):
     args.set = list(args.set) + ov
     cfg = load_config(args)
 
-    from eelunet_tpu_torch.train.trainer import Trainer
+    from eelunet_tpu_torch.parallel.distributed import (
+        init_distributed,
+        is_primary,
+        process_count,
+        shutdown_distributed,
+        sync_seed,
+    )
+    from eelunet_tpu_torch.parallel.mesh import create_mesh
+    from eelunet_tpu_torch.train.trainer import Trainer, check_supported
     from eelunet_tpu_torch.utils.seeding import set_seed
 
-    cfg = apply_overrides(cfg, [f"seed={set_seed(cfg.seed)}"])
-    print(config_to_json(cfg))
-    trainer = Trainer(cfg, device=args.device)
+    # Join the ranks first (each onto its own card), then agree on one seed:
+    # the ranks' slices partition each global batch only if every rank
+    # shuffles alike.
+    distributed = init_distributed(device=args.device)
+    say = print if is_primary() else (lambda *a, **k: None)
+    if distributed:
+        say(f"Distributed runtime: {process_count()} processes")
+    seed = sync_seed(cfg.seed)
+    if cfg.seed is None:
+        say(f"Using seed: {seed}")
+    cfg = apply_overrides(cfg, [f"seed={set_seed(seed)}"])
+    say(config_to_json(cfg))
+    check_supported(cfg)
+    devices = None if distributed else [args.device]
+    mesh = create_mesh(cfg.mesh.data_axis, cfg.mesh.model_axis, cfg.mesh.spatial_axis,
+                       devices=devices)
+    say(f"Mesh: {mesh.shape} over {mesh.devices.size} device(s)")
+    trainer = Trainer(cfg, device=args.device, mesh=mesh)
     train_loader, val_loader, test_loader = build_loaders(cfg, device=args.device)
-    print(f"Device: {trainer.device}; criterion: {trainer.loss_name}; "
-          f"{len(train_loader)} steps per epoch", flush=True)
+    say(f"Device: {trainer.device}; criterion: {trainer.loss_name}; "
+        f"{len(train_loader)} steps per epoch", flush=True)
     trainer.fit(train_loader, val_loader, test_loader)
-    print("kernel launches: " + json.dumps(kernel_launches()), flush=True)
+    say("kernel launches: " + json.dumps(kernel_launches()), flush=True)
+    shutdown_distributed()
 
 
 if __name__ == "__main__":

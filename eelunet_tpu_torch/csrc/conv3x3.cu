@@ -60,6 +60,7 @@
 
 #include <cstdint>
 
+#include "device_once.cuh"
 #include "tc_bf16.cuh"
 
 namespace {
@@ -409,13 +410,10 @@ cudaError_t launch(const void* x, const void* w, const float* scale, const float
                    void* out, int B, Shape s, int relu, cudaStream_t stream) {
   using G = Geo<kP>;
   constexpr int smem = kSmemBytes<T, kP>;
-  static bool configured = false;  // the attribute is set once per instantiation
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        conv3x3_kernel_tc<T, kP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};  // per device the instantiation runs on
+  if (const cudaError_t e = set_smem_once(configured, conv3x3_kernel_tc<T, kP>, smem);
+      e != cudaSuccess)
+    return e;
   const long long tiles = static_cast<long long>((s.H + G::kTH - 1) / G::kTH) *
                           ((s.W + kTW - 1) / kTW);
   const int n_cb = (s.Cout + kCO - 1) / kCO;
@@ -448,3 +446,7 @@ extern "C" int eelunet_conv3x3(int dtype, const void* x, const void* w, const vo
   if (dtype == 1) return launch<__nv_bfloat16, 1>(x, w, sc, sh, out, B, s, relu, st);
   return cudaErrorInvalidValue;
 }
+
+// Kernels of this library whose shared-memory attribute is set on device
+// `dev` (one per instantiation launched there).
+extern "C" int eelunet_conv3x3_configured(int dev) { return configured_on(dev); }

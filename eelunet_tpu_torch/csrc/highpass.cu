@@ -81,6 +81,7 @@
 
 #include <cstdint>
 
+#include "device_once.cuh"
 #include "tc_bf16.cuh"
 
 namespace {
@@ -379,13 +380,10 @@ template <int K>
 cudaError_t contract_tc(const void* x, const void* vr_t, const void* vi_t, void* tr, void* ti,
                         int B, int H, int WC, cudaStream_t s) {
   constexpr int smem = kTcSmemBytes<K>;
-  static bool configured = false;  // the attribute is set once per instantiation
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        contract_kernel_tc<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};  // per device the instantiation runs on
+  if (const cudaError_t e = set_smem_once(configured, contract_kernel_tc<K>, smem);
+      e != cudaSuccess)
+    return e;
   const bool vec = WC % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const dim3 grid((WC + kTcCols - 1) / kTcCols, B);
   contract_kernel_tc<K><<<grid, kTcThreads, smem, s>>>(
@@ -500,13 +498,10 @@ template <int K>
 cudaError_t expand_tc(const void* x, const void* ue, const void* sr, const void* si, void* out,
                       int B, int H, int WC, cudaStream_t s) {
   constexpr int smem = kXpSmemBytes<K>;
-  static bool configured = false;  // the attribute is set once per instantiation
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        expand_kernel_tc<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};  // per device the instantiation runs on
+  if (const cudaError_t e = set_smem_once(configured, expand_kernel_tc<K>, smem);
+      e != cudaSuccess)
+    return e;
   const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
   const bool vec = WC % 8 == 0 && addr(x) % 16 == 0 && addr(out) % 16 == 0;
   const dim3 grid((WC + kXpCols - 1) / kXpCols, B);
@@ -600,3 +595,7 @@ extern "C" int eelunet_highpass_expand(int dtype, int K, const void* x, const vo
   if (dtype == 1) return launch_expand_bf16(K, x, ue, sr, si, out, B, H, WC, s);
   return cudaErrorInvalidValue;
 }
+
+// Kernels of this library whose shared-memory attribute is set on device
+// `dev` (one per instantiation launched there).
+extern "C" int eelunet_highpass_configured(int dev) { return configured_on(dev); }

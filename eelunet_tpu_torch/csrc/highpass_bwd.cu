@@ -88,6 +88,7 @@
 
 #include <cstdint>
 
+#include "device_once.cuh"
 #include "tc_bf16.cuh"
 
 namespace {
@@ -284,13 +285,10 @@ cudaError_t contract_f32(const void* x, const void* g, const void* ur, const voi
                          const void* sr, const void* si, void* u, void* tr, void* ti, int B,
                          int H, int WC, cudaStream_t s) {
   constexpr int smem = contract_smem_bytes<K>();
-  static bool configured = false;  // the attribute is set once per instantiation
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bwd_contract_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};  // per device the instantiation runs on
+  if (const cudaError_t e = set_smem_once(configured, bwd_contract_kernel<K>, smem);
+      e != cudaSuccess)
+    return e;
   const dim3 grid((WC + kThreads - 1) / kThreads, B);
   bwd_contract_kernel<K><<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(g), static_cast<const float*>(ur),
@@ -504,13 +502,10 @@ cudaError_t contract_tc(const void* x, const void* g, const void* ue, const void
                         const void* si, void* u, void* tr, void* ti, int B, int H, int WC,
                         cudaStream_t s) {
   constexpr int smem = kBcSmemBytes<K>;
-  static bool configured = false;  // the attribute is set once per instantiation
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bwd_contract_kernel_tc<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};  // per device the instantiation runs on
+  if (const cudaError_t e = set_smem_once(configured, bwd_contract_kernel_tc<K>, smem);
+      e != cudaSuccess)
+    return e;
   const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
   const bool vec =
       WC % 8 == 0 && addr(x) % 16 == 0 && addr(g) % 16 == 0 && addr(u) % 16 == 0;
@@ -746,13 +741,10 @@ template <int K>
 cudaError_t expand_tc(const void* vr_t, const void* vi_t, const void* rr, const void* ri,
                       const void* u, void* dx, int B, int H, int WC, cudaStream_t s) {
   constexpr int smem = kExpandTcSmemBytes<K>;
-  static bool configured = false;  // the attribute is set once per instantiation
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bwd_expand_kernel_tc<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};  // per device the instantiation runs on
+  if (const cudaError_t e = set_smem_once(configured, bwd_expand_kernel_tc<K>, smem);
+      e != cudaSuccess)
+    return e;
   const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
   const bool vec = WC % 8 == 0 && addr(u) % 16 == 0 && addr(dx) % 16 == 0;
   const dim3 grid((WC + kTcCols - 1) / kTcCols, B);
@@ -821,3 +813,7 @@ extern "C" int eelunet_highpass_bwd_expand(int dtype, int K, const void* vr_t,
   if (dtype == 1) return launch_expand_bf16(K, vr_t, vi_t, rr, ri, u_re, dx, B, H, WC, s);
   return cudaErrorInvalidValue;
 }
+
+// Kernels of this library whose shared-memory attribute is set on device
+// `dev` (one per instantiation launched there).
+extern "C" int eelunet_highpass_bwd_configured(int dev) { return configured_on(dev); }

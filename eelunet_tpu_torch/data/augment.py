@@ -15,7 +15,7 @@ after them.
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -64,13 +64,20 @@ def canny_enhance(images: torch.Tensor, alpha: float = 0.2,
     return torch.clamp(images + alpha * (edges * color), 0.0, 1.0)
 
 
-def random_flip_batch(generator: torch.Generator, images: torch.Tensor, labels: torch.Tensor):
+def random_flip_batch(generator: torch.Generator, images: torch.Tensor, labels: torch.Tensor,
+                      rows=None, total: Optional[int] = None):
     """Per-sample random vertical (H) then horizontal (W) flips of NHWC images
     and masks together, each with probability 1/2, drawn from ``generator``
     (a CPU generator; the draw is moved to the images' device). Shapes stay
-    static: both orientations are computed and selected per sample."""
+    static: both orientations are computed and selected per sample.
+
+    ``rows``/``total``: ``images`` are the rows ``rows`` of a batch of
+    ``total`` (one rank's share of a data-parallel batch); the flips are
+    drawn for the whole batch and those rows' are applied."""
     b = images.shape[0]
-    flags = torch.rand((2, b), generator=generator) < 0.5
+    flags = torch.rand((2, b if rows is None else total), generator=generator) < 0.5
+    if rows is not None:
+        flags = flags[:, torch.as_tensor(rows)]
     fh, fw = (f.to(images.device).view(b, 1, 1, 1) for f in flags)
     images = torch.where(fh, torch.flip(images, (1,)), images)
     labels = torch.where(fh, torch.flip(labels, (1,)), labels)

@@ -4,7 +4,8 @@
 - ``DataLoader`` decodes samples in a thread pool and stacks them into NHWC
   numpy batches of static shape (``drop_remainder``); its shuffle is keyed
   by ``seed + epoch`` (``set_epoch``), so a resumed run replays the batch
-  order of an uninterrupted one exactly.
+  order of an uninterrupted one exactly. With ``process_shard`` it yields
+  one rank's rows of every global batch (``process_rows``).
 - ``prefetch_to_device`` keeps ``depth`` batches in flight: on a CUDA device
   each batch is copied into pinned host memory and uploaded with
   ``non_blocking=True``, so the copy overlaps the previous step's compute.
@@ -20,8 +21,32 @@ import numpy as np
 import torch
 
 
+def process_rows(pid: int, pc: int, batch_size: int, accum_steps: int = 1) -> np.ndarray:
+    """The rows of a global batch of ``batch_size`` that rank ``pid`` of
+    ``pc`` holds, in its local order.
+
+    With ``accum_steps`` = 1 these are JAX's contiguous process slice, rows
+    [pid B/pc, (pid+1) B/pc). With gradient accumulation, JAX's micro-batch
+    i is global rows [i mb, (i+1) mb) (``images.reshape(accum_steps, mb,
+    ...)``), and its batch statistics are those rows'. So each rank holds
+    its share of every micro-batch, in micro-batch order: its local
+    micro-batch i is its B/(pc accum_steps) rows of JAX's micro-batch i."""
+    if batch_size % (pc * accum_steps):
+        raise ValueError(f"batch_size {batch_size} not divisible by {pc} processes x "
+                         f"accum_steps {accum_steps}")
+    mb, k = batch_size // accum_steps, batch_size // (pc * accum_steps)
+    return np.concatenate([np.arange(i * mb + pid * k, i * mb + (pid + 1) * k)
+                           for i in range(accum_steps)])
+
+
 class DataLoader:
-    """Minimal batched loader over an indexable dataset of (image, mask) pairs."""
+    """Minimal batched loader over an indexable dataset of (image, mask) pairs.
+
+    ``process_shard=(pid, pc)``: yield only rank ``pid``'s rows of every
+    global batch (``process_rows``, with ``accum_steps``). Every rank draws
+    the same ``seed + epoch`` order, so the slices are disjoint and cover
+    each batch. It needs ``drop_remainder`` (equal slices on every rank)
+    and a batch that divides among the ranks, as in the JAX package."""
 
     def __init__(
         self,
@@ -32,6 +57,8 @@ class DataLoader:
         drop_remainder: bool = True,
         num_workers: int = 4,
         indices: Optional[np.ndarray] = None,
+        process_shard: Optional[Tuple[int, int]] = None,
+        accum_steps: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -41,6 +68,20 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.indices = np.asarray(indices if indices is not None else np.arange(len(dataset)))
         self._epoch = 0
+        self._rows = None
+        if process_shard is not None:
+            pid, pc = process_shard
+            if not (0 <= pid < pc):
+                raise ValueError(f"process_shard index {pid} out of range for {pc}")
+            if pc > 1:
+                if not drop_remainder:
+                    raise ValueError("process_shard requires drop_remainder=True")
+                if batch_size % pc:
+                    raise ValueError(f"batch_size {batch_size} not divisible by {pc} processes")
+                self._rows = process_rows(pid, pc, batch_size, accum_steps)
+            else:
+                process_shard = None
+        self.process_shard = process_shard
 
     def __len__(self) -> int:
         n = len(self.indices)
@@ -59,6 +100,9 @@ class DataLoader:
         if nb == 0:
             return
         bs = self.batch_size
+        if self._rows is not None:  # only this rank's rows are decoded
+            order = np.concatenate([order[b * bs + self._rows] for b in range(nb)])
+            bs = len(self._rows)
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             futures = [pool.submit(self.dataset.__getitem__, int(i))
                        for i in order[: nb * bs if self.drop_remainder else None]]
@@ -67,7 +111,7 @@ class DataLoader:
                 yield (np.stack([s[0] for s in samples]), np.stack([s[1] for s in samples]))
 
 
-def _to_device(a, device: torch.device) -> torch.Tensor:
+def to_device(a, device: torch.device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):  # already on the device (data/device_cache.py)
         return a.to(device)
     t = torch.from_numpy(np.ascontiguousarray(a))
@@ -88,7 +132,7 @@ def prefetch_to_device(iterator, device, depth: int = 2):
             batch = next(it)
         except StopIteration:
             return
-        queue.append(tuple(_to_device(a, device) for a in batch))
+        queue.append(tuple(to_device(a, device) for a in batch))
 
     for _ in range(max(depth, 1)):
         put()

@@ -4,12 +4,15 @@ Loads a checkpoint once, folds BN, casts the weights to the serving dtype on
 the device, and serves numpy-in / numpy-out batch prediction in the JAX
 package's layout: (B,H,W,3) images in, (B,H,W,1) out. A slim (physically
 pruned) checkpoint swaps in its slim module, unfolded; ``quantize="int8"``
-runs the W8A8 model of ``quantize.py``.
+runs the W8A8 model of ``quantize.py``. With a mesh, a batch is split
+across the devices of its ``data`` axis, one served replica on each.
 """
 
 from __future__ import annotations
 
+import copy
 import os
+from contextlib import nullcontext
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -113,17 +116,33 @@ class Predictor:
 
         A slim (physically pruned) ``checkpoint``, a directory with
         ``widths.json`` (``cli.prune --physical``), swaps in its slim module,
-        left unfolded as in the JAX package. ``mesh`` (multi-device serving)
-        is not ported yet and raises NotImplementedError."""
+        left unfolded as in the JAX package.
+
+        ``mesh`` (``parallel/mesh.create_mesh``, one process): batch-parallel
+        serving over the devices of its ``data`` axis (JAX
+        ``inference.py:70-111, 255-280``). Each device holds a replica of the
+        served model (folded, quantized or slim, as on one device); the
+        bucket is rounded up to a multiple of the data size, and each equal
+        shard is uploaded to its device and runs there on that device's
+        current stream; ``collect`` gathers the shards in order. A device
+        may be listed twice. ``device`` is then the mesh's first device."""
+        self.devices = None
         if mesh is not None:
-            raise NotImplementedError("multi-device serving (mesh=) is not ported yet; "
-                                      "see ROADMAP.md")
+            from eelunet_tpu_torch.parallel.mesh import NOT_PORTED_AXES
+
+            if mesh.shape["model"] > 1 or mesh.shape["spatial"] > 1:
+                raise NotImplementedError(NOT_PORTED_AXES)
+            self.devices = [resolve_device(d) for d in mesh.data_devices]
+            device = self.devices[0]
         if quantize not in (None, "", "none", "int8"):
             raise ValueError(f"unknown quantize mode {quantize!r}; use 'int8'")
         self.quantize = "int8" if quantize == "int8" else None
         self.quant_stats: Optional[dict] = {} if self.quantize else None
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
+        if self.devices is None:
+            self.devices = [self.device]
+        self.data_size = len(self.devices)
         self.dtype = model_dtype(model_cfg)
         self.threshold = threshold
         self.bucket_batches = bucket_batches
@@ -185,19 +204,26 @@ class Predictor:
         return self.stage_state_dict(read_checkpoint(checkpoint, self.model_cfg.name))
 
     def commit(self, staged: torch.nn.Module) -> None:
-        """Phase 2: upload the staged model and swap it in. Concurrent
-        callers serialise this with dispatches (the MicroBatcher's device
-        lock); batches already dispatched hold the old model's tensors and
-        complete unaffected."""
-        self.model = staged.to(self.device)
+        """Phase 2: upload the staged model, one replica per device, and
+        swap them in. Concurrent callers serialise this with dispatches (the
+        MicroBatcher's device lock); batches already dispatched hold the old
+        model's tensors and complete unaffected."""
+        # copied on the host; the copies share the quantized model's op counts
+        keep = {id(self.quant_stats): self.quant_stats}
+        models = [staged] + [copy.deepcopy(staged, dict(keep)) for _ in self.devices[1:]]
+        self.replicas = [m.to(d) for m, d in zip(models, self.devices)]
+        self.model = self.replicas[0]
 
     def load(self, checkpoint: str) -> None:
         self.commit(self.stage(checkpoint))
 
     # -- device programs -----------------------------------------------------
 
-    def _probs(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC images on the device -> NHWC float32 probabilities."""
+    def _probs(self, x: torch.Tensor, model: Optional[torch.nn.Module] = None) -> torch.Tensor:
+        """NHWC images on ``model``'s device (None: the first replica's) ->
+        NHWC float32 probabilities."""
+        if model is None:
+            model = self.model
         if x.dtype == torch.uint8:
             # uint8 serving input: scale + ImageNet-normalise on the device
             x = normalize_imagenet(x.float() / 255.0, self.mean, self.std)
@@ -205,23 +231,27 @@ class Predictor:
             x = x.float()
 
         def fwd(imgs):
-            out = self.model(nchw(imgs).to(self.dtype))
+            out = model(nchw(imgs).to(self.dtype))
             return nhwc(seg_probabilities(out, self.meta))
 
         return predict_probabilities(fwd, x, tta=self.tta)
 
-    def _upload(self, images: np.ndarray) -> torch.Tensor:
+    @staticmethod
+    def _upload(images, device: torch.device) -> torch.Tensor:
+        if isinstance(images, torch.Tensor):
+            return images.to(device)
         t = torch.from_numpy(np.ascontiguousarray(images))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
 
     def _dispatch(self, images, threshold: Optional[float] = None):
-        """Pad to the batch bucket, upload and enqueue the forward. Returns
-        ``(device_out, b)`` without waiting for the device: the caller can
-        dispatch the next batch before collecting this one. ``images`` is a
-        numpy array, or a tensor (already on the device: ``cli.predict``
-        feeds the output of the device-side input chain)."""
+        """Pad to the batch bucket, upload and enqueue the forward, one
+        equal shard per device. Returns ``(device_outs, b)`` without waiting
+        for the devices: the caller can dispatch the next batch before
+        collecting this one. ``images`` is a numpy array, or a tensor
+        (already on a device: ``cli.predict`` feeds the output of the
+        device-side input chain)."""
         on_device = isinstance(images, torch.Tensor)
         if not on_device:
             images = np.asarray(images)
@@ -229,25 +259,29 @@ class Predictor:
         target = b
         if self.bucket_batches and b > 0:
             target = 1 << (b - 1).bit_length() if b <= 16 else -(-b // 16) * 16
-        with torch.inference_mode():
+        if target > 0:  # equal shards on the data axis
+            target = -(-target // self.data_size) * self.data_size
+        if target != b:
             if on_device:
-                x = images.to(self.device)
-                if target != b:
-                    x = torch.cat([x, x.new_zeros((target - b, *x.shape[1:]))])
+                images = torch.cat([images, images.new_zeros((target - b, *images.shape[1:]))])
             else:
-                if target != b:
-                    pad = np.zeros((target - b, *images.shape[1:]), dtype=images.dtype)
-                    images = np.concatenate([images, pad], axis=0)
-                x = self._upload(images)
-            probs = self._probs(x)
-            if threshold is not None:  # mask program: 1 byte/pixel on the wire
-                if self.out_channels > 1:
-                    out = probs.argmax(dim=-1, keepdim=True).to(torch.uint8)
-                else:
-                    out = (probs > threshold).to(torch.uint8)
-            else:
-                out = probs if self._proba_wire is None else probs.to(self._proba_wire)
-        return out, b
+                pad = np.zeros((target - b, *images.shape[1:]), dtype=images.dtype)
+                images = np.concatenate([images, pad], axis=0)
+        k = target // self.data_size
+        outs = []
+        with torch.inference_mode():
+            for i, (model, dev) in enumerate(zip(self.replicas, self.devices)):
+                with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
+                    probs = self._probs(self._upload(images[i * k:(i + 1) * k], dev), model)
+                    if threshold is not None:  # mask program: 1 byte/pixel on the wire
+                        if self.out_channels > 1:
+                            out = probs.argmax(dim=-1, keepdim=True).to(torch.uint8)
+                        else:
+                            out = (probs > threshold).to(torch.uint8)
+                    else:
+                        out = probs if self._proba_wire is None else probs.to(self._proba_wire)
+                outs.append(out)
+        return outs, b
 
     # -- two-phase (dispatch/collect) API: collect(dispatch_x(b)) == predict_x(b)
 
@@ -261,10 +295,10 @@ class Predictor:
         return (out, b, None)
 
     def collect(self, handle) -> np.ndarray:
-        """Copy a dispatch_* result to the host (this waits for the device)
-        and apply the public dtype contract."""
-        out, b, post = handle
-        arr = out[:b].cpu()
+        """Copy a dispatch_* result to the host, its shards in order (this
+        waits for the devices), and apply the public dtype contract."""
+        outs, b, post = handle
+        arr = torch.cat([o.cpu() for o in outs])[:b]
         if post == "f32":
             return arr.float().numpy()
         return arr.numpy()

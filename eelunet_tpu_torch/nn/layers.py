@@ -48,6 +48,63 @@ class Float32Params:
         return self
 
 
+def _per_channel(t: torch.Tensor) -> torch.Tensor:
+    return t.view(1, -1, 1, 1)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the rows of every rank of ``group``, in
+    float32, returning y in x's dtype and the batch's mean, biased variance
+    and count.
+
+    Forward: one all-reduce of the per-channel sum, sum of squares and
+    count. They are taken about ``shift`` (the running mean, alike on every
+    rank), so E[x^2] - E[x]^2 does not cancel once it tracks the batch
+    mean. Backward: one all-reduce of the per-channel sums of dy and
+    dy * x_hat, and dx = (dy - mean(dy) - x_hat mean(dy x_hat)) w / sigma
+    over the global batch: the gradient of the ranks' summed losses, as
+    autograd through the whole batch gives it. The affine gradients are
+    this rank's sums (DDP averages them with the other parameters'). Only
+    x is kept for the backward, as a batch norm keeps it."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, shift, eps: float, group):
+        import torch.distributed as dist
+
+        c = x.shape[1]
+        xc = x.float() - _per_channel(shift)
+        count = torch.full((1,), x.numel() // c, dtype=torch.float32, device=x.device)
+        sums = torch.cat([xc.sum(dim=(0, 2, 3)), (xc * xc).sum(dim=(0, 2, 3)), count])
+        dist.all_reduce(sums, group=group)
+        n = sums[2 * c]
+        mean_c = sums[:c] / n
+        var = torch.clamp(sums[c:2 * c] / n - mean_c * mean_c, min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = (xc - _per_channel(mean_c)) * _per_channel(invstd * weight.float()) \
+            + _per_channel(bias.float())
+        mean = mean_c + shift
+        ctx.save_for_backward(x, mean, invstd, weight)
+        ctx.group, ctx.n = group, n
+        ctx.mark_non_differentiable(mean, var, n)
+        return y.to(x.dtype), mean, var, n
+
+    @staticmethod
+    def backward(ctx, dy, *_):
+        import torch.distributed as dist
+
+        x, mean, invstd, weight = ctx.saved_tensors
+        c = x.shape[1]
+        x_hat = (x.float() - _per_channel(mean)) * _per_channel(invstd)
+        dyf = dy.float()
+        local = torch.cat([dyf.sum(dim=(0, 2, 3)), (dyf * x_hat).sum(dim=(0, 2, 3))])
+        total = local.clone()
+        dist.all_reduce(total, group=ctx.group)
+        dx = (dyf - _per_channel(total[:c] / ctx.n) - x_hat * _per_channel(total[c:] / ctx.n)) \
+            * _per_channel(invstd * weight.float())
+        return (dx.to(x.dtype), local[c:].to(weight.dtype), local[:c].to(weight.dtype),
+                None, None, None)
+
+
 class BatchNorm2d(Float32Params, nn.BatchNorm2d):
     """``nn.BatchNorm2d(eps=1e-5)`` whose eval-mode affine runs in float32.
 
@@ -60,12 +117,26 @@ class BatchNorm2d(Float32Params, nn.BatchNorm2d):
     statistics with the biased variance, running statistics with momentum
     0.1 (flax's 0.9) and the Bessel-corrected variance. Under bf16 autocast
     it takes a bf16 input with f32 affine and statistics and returns bf16.
-    Cast to bf16, it keeps its parameters and statistics in float32."""
+    Cast to bf16, it keeps its parameters and statistics in float32.
+
+    Under data parallelism (``sync_group``, set by ``sync_batch_norms``) the
+    train-mode statistics are those of the global batch, as in the JAX
+    package, where the data-parallel batch is one array and XLA reduces its
+    statistics over the mesh; plain DDP would normalise each rank by its
+    own rows. ``nn.SyncBatchNorm`` refuses CPU tensors, so this path is
+    written out: ``_global_batch_norm``."""
 
     def __init__(self, num_features: int, device=None, dtype=None):
         super().__init__(num_features, eps=1e-5, device=device, dtype=dtype)
+        self.sync_group = None
+
+    def __getstate__(self):
+        # A process group does not copy or pickle: a copy normalises alone.
+        return {**super().__getstate__(), "sync_group": None}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.sync_group is not None:
+            return self._global_batch_norm(x)
         if self.training:
             return super().forward(x)
         y = F.batch_norm(
@@ -73,6 +144,31 @@ class BatchNorm2d(Float32Params, nn.BatchNorm2d):
             self.weight.float(), self.bias.float(), False, 0.0, self.eps,
         )
         return y.to(x.dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the batch of every rank of ``sync_group``
+        (``_GlobalBatchNorm``): ``nn.BatchNorm2d`` on the concatenated
+        batch, biased variance to normalise, the unbiased one over the
+        global count in the running variance, momentum 0.1."""
+        y, mean, var, n = _GlobalBatchNorm.apply(
+            x, self.weight, self.bias, self.running_mean.detach().float().clone(), self.eps,
+            self.sync_group)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean.to(self.running_mean.dtype))
+            self.running_var.mul_(1 - m).add_(m * (var * n / (n - 1)).to(self.running_var.dtype))
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def sync_batch_norms(model: nn.Module, group) -> nn.Module:
+    """Give every ``BatchNorm2d`` of ``model`` the global-batch statistics of
+    the ranks of ``group`` in train mode (None: each rank's own batch, the
+    single-process behaviour). Eval mode is unchanged. Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.sync_group = group
+    return model
 
 
 class GroupNorm4(Float32Params, nn.GroupNorm):

@@ -94,3 +94,12 @@ def load(name: str) -> ctypes.CDLL:
             path, _, _ = build(name)
             _libs[name] = ctypes.CDLL(str(path))
         return _libs[name]
+
+
+def configured_on(name: str, device: int) -> int:
+    """How many kernels of ``csrc/<name>.cu`` have had their dynamic
+    shared-memory attribute set on card ``device`` in this process (the
+    attribute belongs to the card; ``csrc/device_once.cuh``)."""
+    fn = getattr(load(name), f"eelunet_{name}_configured")
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return int(fn(device))

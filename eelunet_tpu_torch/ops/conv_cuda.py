@@ -100,10 +100,11 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor] = No
     out = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    err = _lib().eelunet_conv3x3(
-        _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), sc.data_ptr(), sh.data_ptr(),
-        out.data_ptr(), b, h, wd, cin, cout, int(relu),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # launch on the operand's card
+        err = _lib().eelunet_conv3x3(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(), sc.data_ptr(), sh.data_ptr(),
+            out.data_ptr(), b, h, wd, cin, cout, int(relu),
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3: CUDA launch failed with cudaError_t {err}")
     LAUNCHES["conv3x3"] += 1

@@ -239,9 +239,10 @@ def fused_canny(x: torch.Tensor, low: float = 0.2, high: float = 0.8, sigma: flo
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    err = _lib().eelunet_fused_canny(
-        code, x.data_ptr(), out.data_ptr(), n, h, w, *taps(float(sigma)),
-        float(low) ** 2, torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # launch on the operand's card
+        err = _lib().eelunet_fused_canny(
+            code, x.data_ptr(), out.data_ptr(), n, h, w, *taps(float(sigma)),
+            float(low) ** 2, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_canny: CUDA launch failed with cudaError_t {err}")
     LAUNCHES["fused_canny"] += 1
@@ -274,9 +275,10 @@ def hysteresis(nms: torch.Tensor, low: float, high: float,
     if nms.numel() == 0:
         return out.to(dtype), flags[3].zero_()
     state = torch.empty(nms.shape, dtype=torch.uint8, device=nms.device)
-    err = _lib().eelunet_hysteresis(
-        code, nms.data_ptr(), state.data_ptr(), out.data_ptr(), flags.data_ptr(), n, h, w,
-        float(low), float(high), torch.cuda.current_stream(nms.device).cuda_stream)
+    with torch.cuda.device(nms.device):  # launch on the operand's card
+        err = _lib().eelunet_hysteresis(
+            code, nms.data_ptr(), state.data_ptr(), out.data_ptr(), flags.data_ptr(), n, h, w,
+            float(low), float(high), torch.cuda.current_stream(nms.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hysteresis: CUDA launch failed with cudaError_t {err}")
     LAUNCHES["hysteresis"] += 1

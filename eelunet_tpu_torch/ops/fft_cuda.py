@@ -300,9 +300,10 @@ def highpass_contract(x3: torch.Tensor, vr_t: torch.Tensor, vi_t: torch.Tensor):
             for t in (vr_t, vi_t)]
     tr = torch.empty((b, k, wc), dtype=torch.float32, device=x3.device)
     ti = torch.empty_like(tr)
-    err = _lib("highpass").eelunet_highpass_contract(
-        code, k, x3.data_ptr(), *ptrs, tr.data_ptr(), ti.data_ptr(), b, h, wc,
-        torch.cuda.current_stream(x3.device).cuda_stream)
+    with torch.cuda.device(x3.device):  # launch on the operand's card
+        err = _lib("highpass").eelunet_highpass_contract(
+            code, k, x3.data_ptr(), *ptrs, tr.data_ptr(), ti.data_ptr(), b, h, wc,
+            torch.cuda.current_stream(x3.device).cuda_stream)
     _raise_on("highpass_contract", err)
     LAUNCHES["highpass_contract"] += 1
     return tr, ti
@@ -322,9 +323,10 @@ def highpass_expand(x3: torch.Tensor, ur: torch.Tensor, ui: torch.Tensor,
     ptrs.append(_stacked_ptr("highpass_expand", ur, ui, h, k))
     ptrs += [_operand("highpass_expand", t, (b, k, wc), f32, x3.device) for t in (sr, si)]
     out = torch.empty_like(x3)
-    err = _lib("highpass").eelunet_highpass_expand(
-        code, k, x3.data_ptr(), *ptrs, out.data_ptr(), b, h, wc,
-        torch.cuda.current_stream(x3.device).cuda_stream)
+    with torch.cuda.device(x3.device):  # launch on the operand's card
+        err = _lib("highpass").eelunet_highpass_expand(
+            code, k, x3.data_ptr(), *ptrs, out.data_ptr(), b, h, wc,
+            torch.cuda.current_stream(x3.device).cuda_stream)
     _raise_on("highpass_expand", err)
     LAUNCHES["highpass_expand"] += 1
     return out
@@ -351,10 +353,11 @@ def highpass_bwd_contract(x3: torch.Tensor, g3: torch.Tensor, ur: torch.Tensor,
     u_re = torch.empty_like(x3)
     tr = torch.empty((b, k, wc), dtype=f32, device=x3.device)
     ti = torch.empty_like(tr)
-    err = _lib("highpass_bwd").eelunet_highpass_bwd_contract(
-        code, k, x3.data_ptr(), g3.data_ptr(), *ptrs, u_re.data_ptr(),
-        tr.data_ptr(), ti.data_ptr(), b, h, wc,
-        torch.cuda.current_stream(x3.device).cuda_stream)
+    with torch.cuda.device(x3.device):  # launch on the operand's card
+        err = _lib("highpass_bwd").eelunet_highpass_bwd_contract(
+            code, k, x3.data_ptr(), g3.data_ptr(), *ptrs, u_re.data_ptr(),
+            tr.data_ptr(), ti.data_ptr(), b, h, wc,
+            torch.cuda.current_stream(x3.device).cuda_stream)
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return u_re, tr, ti
@@ -374,9 +377,10 @@ def highpass_bwd_expand(u_re: torch.Tensor, vr_t: torch.Tensor, vi_t: torch.Tens
     ptrs = [_operand(name, t, (h, k), f32, u_re.device, align=16) for t in (vr_t, vi_t)]
     ptrs += [_operand(name, t, (b, k, wc), f32, u_re.device) for t in (rr, ri)]
     dx = torch.empty_like(u_re)
-    err = _lib("highpass_bwd").eelunet_highpass_bwd_expand(
-        code, k, *ptrs, u_re.data_ptr(), dx.data_ptr(), b, h, wc,
-        torch.cuda.current_stream(u_re.device).cuda_stream)
+    with torch.cuda.device(u_re.device):  # launch on the operand's card
+        err = _lib("highpass_bwd").eelunet_highpass_bwd_expand(
+            code, k, *ptrs, u_re.data_ptr(), dx.data_ptr(), b, h, wc,
+            torch.cuda.current_stream(u_re.device).cuda_stream)
     _raise_on(name, err)
     LAUNCHES[name] += 1
     return dx

@@ -542,6 +542,9 @@ class SegmentationService:
             # (enqueue -> result) and per-batch device time.
             "latency_ms": pct(b.latency_ms),
             "device_ms": pct(b.device_ms),
+            # Devices a batch is split across (the mesh's data axis; 1 for
+            # one device or an exported artifact).
+            "data_size": getattr(self.predictor, "data_size", 1),
             # Launches of each hand-written kernel since the process started
             # (2 per forward for each high-pass kernel; 0 on a CPU device).
             "kernel_launches": dict(LAUNCHES),

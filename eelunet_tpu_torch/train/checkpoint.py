@@ -22,6 +22,13 @@ files, in submission order, while training goes on. The copy is what makes
 this safe: ``optimizer.step()`` and the BN updates change the live tensors
 in place. A failed write is raised again on the next submit or ``wait()``.
 Direct calls stay synchronous, so their files can be read when they return.
+
+Under a process group (data parallelism) every rank holds the same state and
+calls the same saves; only the primary writes, as in the JAX package
+(``eelunet_tpu/train/checkpoint.py:231-288, 386-388``). ``wait()`` and each
+synchronous save end in a barrier, so that no rank reads a snapshot, a tag
+or ``best_meta.json`` before it is on disk; ``restore`` reads on every rank,
+onto its own device.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from eelunet_tpu_torch.models.convert import to_upstream_state_dict
+from eelunet_tpu_torch.parallel.distributed import barrier, is_primary
 
 BEST_METRICS = ("iou", "dice", "miou", "mdice", "boundary_f1")
 
@@ -142,28 +150,40 @@ class CheckpointManager:
         self.root = os.path.abspath(os.path.join(save_dir, model_name))
         os.makedirs(self.root, exist_ok=True)
         self.model_name = model_name
-        self._async = _AsyncWriter() if async_writes else None
+        self.primary = is_primary()  # the rank that writes
+        # Every rank takes the same path through each save (so that their
+        # barriers pair up); only the primary has a writer.
+        self._background = async_writes
+        self._async = _AsyncWriter() if async_writes and self.primary else None
 
     def wait(self) -> None:
         """Block until every pending background write has landed (a no-op
-        when writes are synchronous); re-raises the first failed one."""
+        when writes are synchronous); re-raises the first failed one. Under
+        a process group every rank waits for the primary's writes."""
         if self._async is not None:
             self._async.wait()
+        barrier()
 
     def run_after_saves(self, fn: Callable[[], None]) -> None:
         """Run ``fn`` after every pending write (at once when synchronous):
-        for a sidecar file that must not land before its checkpoint."""
+        for a sidecar file that must not land before its checkpoint. Only
+        the primary runs it."""
+        if not self.primary:
+            return
         if self._async is not None:
             self._async.submit(fn)
         else:
             fn()
 
     def _run(self, work: Callable[[], None], background: bool) -> None:
-        if background and self._async is not None:
-            self._async.submit(work)
+        if background and self._background:
+            if self._async is not None:
+                self._async.submit(work)
         else:
             self.wait()  # keep the order of any earlier background writes
-            work()
+            if self.primary:
+                work()
+            barrier()
 
     def tag_path(self, tag: str) -> str:
         return os.path.join(self.root, f"{self.model_name}_{tag}")
@@ -180,7 +200,7 @@ class CheckpointManager:
         """Full snapshot of ``state`` in the directory ``path``."""
         ema = state.ema is not None
         enqueue = background and self._async is not None
-        snap = _Snapshot(state.state_dict()) if enqueue else None
+        snap = _Snapshot(state.state_dict()) if enqueue else None  # primary only
 
         def work():
             os.makedirs(path, exist_ok=True)
@@ -247,11 +267,14 @@ class CheckpointManager:
         returns no paths."""
         if keep <= 0:
             return []
-        if background and self._async is not None:
-            self._async.submit(lambda: self._prune_snapshots(keep))
+        if background and self._background:
+            if self._async is not None:
+                self._async.submit(lambda: self._prune_snapshots(keep))
             return []
         self.wait()
-        return self._prune_snapshots(keep)
+        doomed = self._prune_snapshots(keep) if self.primary else []
+        barrier()
+        return doomed
 
     def _prune_snapshots(self, keep: int) -> List[str]:
         pat = re.compile(re.escape(self.model_name) + r"_epoch_(\d+)$")

@@ -9,6 +9,11 @@
   summable metric counts, in eval mode.
 - ``Trainer``: the epoch loop with history, best tags, snapshots, ``last``,
   the ``ema`` tag and exact resume.
+- Data parallelism (``Trainer(mesh=...)`` under a process group, one rank
+  per card, ``parallel/``): the model trains wrapped in
+  ``DistributedDataParallel`` with global-batch BN statistics, so that a
+  step over the ranks' rows is the JAX package's step over the global batch
+  (``DataParallel``); losses and metric counts are reduced over the ranks.
 
 Unlike the JAX Trainer, which pins its train steps to the XLA low-rank
 high-pass after a TPU measurement, the port's train step runs whatever
@@ -19,11 +24,13 @@ the plain reference.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import json
 import os
 import time
+from contextlib import nullcontext
 from datetime import datetime
 from functools import partial
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
@@ -35,8 +42,16 @@ from torch.utils.checkpoint import checkpoint
 from eelunet_tpu_torch import losses as L
 from eelunet_tpu_torch import metrics as M
 from eelunet_tpu_torch.data.augment import make_input_preprocess, random_flip_batch
-from eelunet_tpu_torch.data.pipeline import prefetch_to_device
-from eelunet_tpu_torch.nn.layers import init_weights, nchw, nhwc
+from eelunet_tpu_torch.data.pipeline import prefetch_to_device, process_rows
+from eelunet_tpu_torch.nn.layers import init_weights, nchw, nhwc, sync_batch_norms
+from eelunet_tpu_torch.parallel.distributed import (
+    all_reduce_sum_,
+    data_group,
+    is_primary,
+    process_count,
+    process_index,
+)
+from eelunet_tpu_torch.parallel.mesh import NOT_PORTED_AXES, create_mesh, spatial_size
 from eelunet_tpu_torch.registry import (
     ModelOutput,
     create_model,
@@ -52,13 +67,71 @@ from eelunet_tpu_torch.utils.profiling import start_trace, stop_trace
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for the options of the JAX Trainer that
-    the port does not have yet (``ROADMAP.md``)."""
-    todo = []
-    if cfg.mesh.data_axis not in (-1, 1) or cfg.mesh.model_axis > 1 or cfg.mesh.spatial_axis > 1:
-        todo.append("multi-GPU meshes (mesh.*_axis > 1)")
-    if todo:
-        raise NotImplementedError("not ported to eelunet_tpu_torch yet: " + "; ".join(todo)
-                                  + "; see ROADMAP.md")
+    the port does not have yet: the ``model`` and ``spatial`` mesh axes
+    (``ROADMAP.md``)."""
+    if cfg.mesh.model_axis > 1 or cfg.mesh.spatial_axis > 1:
+        raise NotImplementedError(NOT_PORTED_AXES)
+
+
+def choose_batch_placement(local_rows: int, height: int, n_data: int,
+                           n_sp: int, process_count: int,
+                           loader_sharded: bool) -> str:
+    """The JAX Trainer's placement of one host-side batch
+    (``eelunet_tpu/train/trainer.py:51-78``): "full" (rows over 'data', H
+    over 'spatial'), "rows" (rows only: H does not divide the spatial axis)
+    or "replicate". A tail batch that does not divide the data axis is
+    replicated (eval loaders drop no sample); a process-sharded batch never
+    is (each process holds different rows), which is an error.
+
+    The port calls it with ``process_count`` 1 for a loader that is not
+    process-sharded: each rank then holds the whole global batch, as one
+    JAX process over the whole mesh would."""
+    global_rows = local_rows * (process_count if loader_sharded else 1)
+    rows_ok = global_rows % n_data == 0 and (loader_sharded or process_count == 1)
+    if rows_ok and height % n_sp == 0:
+        return "full"
+    if rows_ok:
+        return "rows"
+    if loader_sharded and process_count > 1:
+        raise ValueError(
+            f"process-sharded batch of {local_rows} local rows "
+            f"({global_rows} global) does not divide the data axis "
+            f"({n_data}) and cannot be replicated across processes"
+        )
+    return "replicate"
+
+
+class DataParallel:
+    """This rank's part in a data-parallel train step over every rank of the
+    process group, one device each.
+
+    - ``wrap``: the model in ``DistributedDataParallel`` (gradients averaged
+      over the ranks), its batch norms on global-batch statistics
+      (``nn/layers.sync_batch_norms``), so their running statistics are
+      equal on every rank. No family leaves a
+      parameter without a gradient in its train forward
+      (``tests/test_torch_port_ddp.py``), so unused parameters are not
+      searched for.
+    - ``rows``: where this rank's rows sit in the global batch
+      (``data/pipeline.process_rows``), for the step-keyed flips."""
+
+    def __init__(self, device: torch.device):
+        self.rank, self.world = process_index(), process_count()
+        self.group = data_group()
+        self.device = device
+        self._ddp = None
+
+    def wrap(self, model: torch.nn.Module):
+        if self._ddp is None or self._ddp.module is not model:
+            from torch.nn.parallel import DistributedDataParallel
+
+            sync_batch_norms(model, self.group)
+            ids = [self.device.index] if self.device.type == "cuda" else None
+            self._ddp = DistributedDataParallel(model, device_ids=ids, process_group=self.group)
+        return self._ddp
+
+    def rows(self, local_batch: int, accum_steps: int) -> np.ndarray:
+        return process_rows(self.rank, self.world, local_batch * self.world, accum_steps)
 
 
 # Options of the JAX Trainer that the port accepts and does not act on
@@ -113,7 +186,8 @@ def forward_loss(model, loss_fn, images, labels, amp_dtype=None, remat: bool = F
 
 def make_train_step(loss_fn: Callable, amp_dtype=None, remat: bool = False,
                     accum_steps: int = 1, random_flip: bool = False,
-                    skip_nonfinite: bool = False, grad_clip_norm: float = 0.0):
+                    skip_nonfinite: bool = False, grad_clip_norm: float = 0.0,
+                    dp: Optional[DataParallel] = None):
     """The train step: ``step(state, images, labels) -> (loss, ok)`` on
     preprocessed NHWC batches on the device; it updates ``state`` in place.
 
@@ -123,15 +197,29 @@ def make_train_step(loss_fn: Callable, amp_dtype=None, remat: bool = False,
     gradient reverts the update (parameters, moments, BN statistics, EMA,
     and the schedule's count, which the JAX package keeps in the optimizer
     state) and still advances ``state.step``; it reads one flag back to the
-    host per step. ``ok`` is False for a skipped step."""
+    host per step. ``ok`` is False for a skipped step.
+
+    ``dp``: the step of one rank of a data-parallel run. ``images`` are its
+    rows of the global batch (``DataLoader(process_shard=...)``), the
+    forward runs through DDP, the flips are the global batch's draw at this
+    rank's rows, only the last micro-batch's backward reduces the gradients
+    (``no_sync`` before it), and the guard's verdict comes from the loss
+    summed over the ranks and the reduced gradients, so every rank skips
+    alike. The returned loss is this rank's."""
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         model = state.model
         model.train()
-        if random_flip:
-            images, labels = random_flip_batch(flip_generator(state.seed, state.step),
-                                               images, labels)
+        fwd = dp.wrap(model) if dp is not None else model
         b = images.shape[0]
+        if random_flip:
+            gen = flip_generator(state.seed, state.step)
+            if dp is None:
+                images, labels = random_flip_batch(gen, images, labels)
+            else:
+                images, labels = random_flip_batch(gen, images, labels,
+                                                   rows=dp.rows(b, accum_steps),
+                                                   total=b * dp.world)
         if b % accum_steps:
             raise ValueError(f"batch {b} not divisible by accum_steps {accum_steps}")
         mb = b // accum_steps
@@ -141,11 +229,13 @@ def make_train_step(loss_fn: Callable, amp_dtype=None, remat: bool = False,
         total = torch.zeros((), device=images.device)
         for i in range(accum_steps):
             sl = slice(i * mb, (i + 1) * mb)
-            loss = forward_loss(model, loss_fn, images[sl], labels[sl], amp_dtype, remat)
-            # The recompute of a remat forward updates the BN statistics a
-            # second time: keep those of the first forward.
-            after_fwd = [t.clone() for t in buffers] if remat else None
-            loss.backward()
+            reduce = dp is None or i == accum_steps - 1
+            with nullcontext() if reduce else fwd.no_sync():
+                loss = forward_loss(fwd, loss_fn, images[sl], labels[sl], amp_dtype, remat)
+                # The recompute of a remat forward updates the BN statistics
+                # a second time: keep those of the first forward.
+                after_fwd = [t.clone() for t in buffers] if remat else None
+                loss.backward()
             if remat:
                 for t, v in zip(buffers, after_fwd):
                     t.copy_(v)
@@ -157,7 +247,7 @@ def make_train_step(loss_fn: Callable, amp_dtype=None, remat: bool = False,
                 p.grad.div_(accum_steps)
         ok = True
         if skip_nonfinite:
-            finite = torch.isfinite(loss)
+            finite = torch.isfinite(loss if dp is None else all_reduce_sum_(loss.clone()))
             for p in params:
                 finite = finite & torch.isfinite(p.grad).all()
             ok = bool(finite)
@@ -213,15 +303,34 @@ class Trainer:
     """End-to-end training loop (reference train() train.py:87-214).
 
     ``device``: None = "cuda" (raises without a card); "cpu" only when asked.
-    ``widths``: the EELUnet's channel widths (None = reference widths)."""
+    ``widths``: the EELUnet's channel widths (None = reference widths).
 
-    def __init__(self, cfg, device=None, widths=None):
+    ``mesh`` (None: ``cfg.mesh``'s): its ``data`` axis spans the processes,
+    one device each: 1 in a single process, every rank under a process
+    group (``parallel/distributed.init_distributed``), where the train step
+    is data-parallel (``DataParallel``), evaluation shards each batch whose
+    rows divide the ranks (``choose_batch_placement``) and reduces the
+    metric counts, and only the primary logs and writes."""
+
+    def __init__(self, cfg, device=None, widths=None, mesh=None):
         check_supported(cfg)
         if cfg.data.add_canny_edge and cfg.model.in_channels == 3:
             # The edge map is a 4th input channel (AddCannyEdge.py:8-41).
             cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, in_channels=4))
         self.cfg = cfg
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.mesh = mesh if mesh is not None else create_mesh(
+            cfg.mesh.data_axis, cfg.mesh.model_axis, cfg.mesh.spatial_axis,
+            devices=None if process_count() > 1 else [self.device])
+        n_data = self.mesh.shape["data"]
+        if n_data != process_count():
+            raise ValueError(
+                f"the Trainer's data axis spans processes, one device each: a mesh of "
+                f"{self.mesh.shape} needs {n_data} processes (torchrun --nproc_per_node), "
+                f"this run has {process_count()}")
+        self.dp = DataParallel(self.device) if n_data > 1 else None
         self._preprocess = make_input_preprocess(cfg.data, cfg.model.out_channels)
         self.model, self.meta = create_model(cfg.model, widths=widths)
         self.amp_dtype = None if model_dtype(cfg.model) == torch.float32 else model_dtype(cfg.model)
@@ -262,7 +371,7 @@ class Trainer:
                     self.loss_fn, self.amp_dtype, cfg.remat, cfg.accum_steps,
                     random_flip=cfg.data.random_flip,
                     skip_nonfinite=cfg.skip_nonfinite_updates,
-                    grad_clip_norm=cfg.optimizer.grad_clip_norm)
+                    grad_clip_norm=cfg.optimizer.grad_clip_norm, dp=self.dp)
             elif name == "eval_loss":
                 fn = make_eval_loss_step(self.loss_fn, self.amp_dtype)
             elif name == "eval":
@@ -274,9 +383,39 @@ class Trainer:
 
     # -- loops ---------------------------------------------------------------
     def _device_batches(self, loader: Iterable):
-        for images, labels in prefetch_to_device(loader, self.device,
+        """(images, labels) on the device, preprocessed: this rank's rows of
+        each batch (``_placed_batches``)."""
+        return ((images, labels) for images, labels, _ in self._placed_batches(loader))
+
+    def _placed_batches(self, loader: Iterable):
+        """(images, labels, share) on the device, preprocessed: this rank's
+        rows of each batch, and the share of the batch's samples whose
+        results it counts in the sum over the ranks. A process-sharded
+        loader (train) yields a rank's rows already. An unsharded one (val,
+        test) yields the whole batch to every rank, which keeps its 1/world
+        of the rows where they divide the ranks, and otherwise runs the
+        batch whole; only the primary counts it then (share 1, 0 elsewhere)."""
+        sharded = getattr(loader, "process_shard", None) is not None
+        world, rank = process_count(), process_index()
+        shares = collections.deque()
+
+        def place(batch):
+            images, labels = batch
+            choice = choose_batch_placement(images.shape[0], images.shape[1],
+                                            self.mesh.shape["data"], spatial_size(self.mesh),
+                                            world if sharded else 1, sharded)
+            if choice == "replicate":
+                shares.append(1.0 if rank == 0 else 0.0)
+                return images, labels
+            shares.append(1.0 / world)
+            if sharded or world == 1:
+                return images, labels
+            k = images.shape[0] // world
+            return images[rank * k:(rank + 1) * k], labels[rank * k:(rank + 1) * k]
+
+        for images, labels in prefetch_to_device(map(place, loader), self.device,
                                                  self.cfg.data.prefetch_depth):
-            yield self._preprocess(images, labels)
+            yield (*self._preprocess(images, labels), shares.popleft())
 
     def train_one_epoch(self, state: TrainState, loader) -> Tuple[TrainState, float]:
         """One pass over ``loader``: (state, mean loss over the applied
@@ -286,16 +425,16 @@ class Trainer:
         step = self._get_step("train")
         total = torch.zeros((), device=self.device)
         n = applied = 0
-        want_prof = self.cfg.profile_steps if not self._profiled else 0
+        want_prof = self.cfg.profile_steps if not self._profiled and is_primary() else 0
         prof = None
         try:
-            for i, (images, labels) in enumerate(self._device_batches(loader)):
+            for i, (images, labels, share) in enumerate(self._placed_batches(loader)):
                 if want_prof and i == 1:
                     prof = start_trace(os.path.join(self.cfg.log_dir, self.cfg.model.name,
                                                     "profile"))
                 loss, ok = step(state, images, labels)
                 if ok:
-                    total = total + loss
+                    total = total + loss * share
                     applied += 1
                 n += 1
                 if prof is not None and i >= want_prof:
@@ -306,16 +445,18 @@ class Trainer:
                 stop_trace(prof)
                 self._profiled = True
         self.last_skipped_steps = n - applied
-        return state, float(total) / max(applied, 1)
+        return state, float(all_reduce_sum_(total)) / max(applied, 1)
 
     def val_one_epoch(self, state: TrainState, loader) -> float:
+        """The mean over batches of each batch's loss (a per-sample mean, so
+        the shares of the ranks' losses sum to it)."""
         step = self._get_step("eval_loss")
         total = torch.zeros((), device=self.device)
         n = 0
-        for images, labels in self._device_batches(loader):
-            total = total + step(state, images, labels)
+        for images, labels, share in self._placed_batches(loader):
+            total = total + step(state, images, labels) * share
             n += 1
-        return float(total) / max(n, 1)
+        return float(all_reduce_sum_(total)) / max(n, 1)
 
     def evaluate(self, state: TrainState, loader, return_accum: bool = False):
         """Full metric evaluation (reference evaluate.py:62-124).
@@ -323,9 +464,15 @@ class Trainer:
         (``MetricAccum`` or ``MetricAccumMC``), for the per-class table."""
         step = self._get_step("eval")
         acc = None
-        for images, labels in self._device_batches(loader):
+        for images, labels, share in self._placed_batches(loader):
             batch_acc = step(state, images, labels)
+            if share == 0.0:  # a replicated batch, counted on the primary
+                batch_acc = type(batch_acc)(*(torch.zeros_like(t) for t in batch_acc))
             acc = batch_acc if acc is None else acc + batch_acc
+        if acc is not None and self.dp is not None:
+            flat = all_reduce_sum_(torch.cat([t.reshape(-1).float() for t in acc]))
+            parts = flat.split([t.numel() for t in acc])
+            acc = type(acc)(*(p.view(t.shape).to(t.dtype) for p, t in zip(parts, acc)))
         if acc is None:
             out = {k: 0.0 for k in M.METRIC_NAMES}
         else:
@@ -337,6 +484,9 @@ class Trainer:
     def fit(self, train_loader, val_loader, test_loader, state: Optional[TrainState] = None,
             log=print) -> Tuple[TrainState, Dict[str, Any]]:
         cfg = self.cfg
+        primary = is_primary()  # only the primary logs, prints and writes files
+        if not primary:
+            log = lambda *a, **k: None  # noqa: E731
         if ignored_options(cfg):
             log(ignored_options(cfg))
         steps_per_epoch = max(len(train_loader), 1)
@@ -363,7 +513,7 @@ class Trainer:
 
         run_dir = os.path.join(cfg.log_dir, cfg.model.name,
                                datetime.now().strftime("%Y%m%d_%H%M%S"))
-        logger = MetricLogger(run_dir)
+        logger = MetricLogger(run_dir) if primary else None
         history = {"train_loss": [], "val_loss": [], "metrics": []}
         json_path = os.path.join(self.ckpt.root, "loss_history.json")
         if start_epoch > 0 and os.path.exists(json_path):
@@ -389,7 +539,8 @@ class Trainer:
             history["train_loss"].append(train_loss)
             history["val_loss"].append(val_loss)
             history["metrics"].append(metrics)
-            logger.log_epoch(epoch + 1, train_loss, val_loss, metrics)
+            if logger is not None:
+                logger.log_epoch(epoch + 1, train_loss, val_loss, metrics)
 
             # With async_checkpoint the tensors are copied here and written
             # by the checkpoint worker while the next epoch runs.
@@ -404,8 +555,9 @@ class Trainer:
                           for k in ("iou", "dice", "miou", "mdice", "boundary_f1")
                           if k in metrics)
                 + f"({time.time() - t0:.1f}s)")
-            with open(json_path, "w") as f:
-                json.dump(history, f, indent=2)
+            if primary:
+                with open(json_path, "w") as f:
+                    json.dump(history, f, indent=2)
             # best_meta.json must not land before its best tags (a resume
             # would then skip a tag that was never written): it queues
             # behind them, on a copy, since self.best changes next epoch.
@@ -421,5 +573,6 @@ class Trainer:
         self.ckpt.wait()
         log("Training complete. Best: "
             + " ".join(f"{k}={v:.4f}" for k, v in self.best.best.items()))
-        logger.close()
+        if logger is not None:
+            logger.close()
         return state, history

@@ -215,16 +215,21 @@ def test_cli_train_then_evaluate_reproduces_the_metrics(tmp_path, capsys):
 
 
 def test_evaluate_refuses_what_is_not_ported(tmp_path):
-    """A mesh is still refused. Slim checkpoints are ported, and refuse the
-    Canny flags, as in the JAX package (a slim model has 3 input channels)."""
+    """A mesh's ``model`` and ``spatial`` axes are still refused, and a data
+    axis larger than the devices raises JAX's ValueError. Slim checkpoints
+    are ported, and refuse the Canny flags, as in the JAX package (a slim
+    model has 3 input channels)."""
     slim = tmp_path / "slim"
     slim.mkdir()
     (slim / "widths.json").write_text('{"model": "eelunet", "widths": {}}')
     with pytest.raises(ValueError, match="not supported on the slim"):
         evaluate_cli.main(["--device", "cpu", "--checkpoint", str(slim),
                            "--set", "data.add_canny_edge=true"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs more than 1 devices"):
         evaluate_cli.main(["--device", "cpu", "--set", "mesh.data_axis=2"])
+    for axis in ("model", "spatial"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            evaluate_cli.main(["--device", "cpu", "--set", f"mesh.{axis}_axis=2"])
 
 
 def test_trainer_takes_four_channels_with_the_edge_flag():

@@ -2,8 +2,9 @@
 stencil and its hysteresis, and the 3x3 convolution) against their plain
 PyTorch twins, on the card, the other model families' forwards on the
 card against the CPU, a multi-class EELUnet step on the kernels against
-the low-rank step, the device-cached loader and a background checkpoint
-under in-place updates on the card. Every test here needs a CUDA device and skips without one; on
+the low-rank step, the device-cached loader, a background checkpoint
+under in-place updates, and launches on operands of another card than the
+current one (two cards) with the per-card shared-memory attribute. Every test here needs a CUDA device and skips without one; on
 the H100 run ``python -m pytest -q tests/test_torch_port_cuda.py`` (this file
 imports no JAX, so it runs where only the port is installed).
 """
@@ -108,6 +109,72 @@ def test_bwd_kernels_match_plain_twins(cuda, shape, mask_range, dtype, tol):
     assert uk.dtype == dtype and dk.dtype == dtype and trk.dtype == torch.float32
     assert _rel(trk, trp) <= 1e-4 and _rel(tik, tip) <= 1e-4
     assert _rel_l2(uk, up) <= tol and _rel_l2(dk, dp) <= tol
+
+
+def _every_kernel(dev):
+    """Each hand-written kernel once on operands on ``dev``: the four
+    high-pass kernels in bf16 (the tensor-core ones, which set their shared
+    memory attribute), kernel 5 in mode improve and the hysteresis, and
+    kernel 6 in bf16. Returns the outputs on the host."""
+    b, h, w, c = 2, 64, 48, 8
+    x = _x((b, h, w, c), torch.bfloat16, dev)
+    x3, g3 = x.view(b, h, w * c), _x((b, h, w, c), torch.bfloat16, dev, seed=1).view(b, h, -1)
+    vr_t, vi_t = fft_cuda.factor_tensors(h, w, 12, torch.bfloat16, dev)[:2]
+    vr32, vi32, uhr, uhi, uwr, uwi, vwr, vwi = fft_cuda.factor_tensors(
+        h, w, 12, torch.float32, dev)
+    img = torch.rand((2, 40, 52, 1), generator=torch.Generator(device=dev).manual_seed(7),
+                     device=dev)
+    with torch.inference_mode():
+        t = fft_cuda.highpass_contract(x3, vr_t, vi_t)
+        s = fft_cuda.w_axis_middle(*t, uwr, uwi, vwr, vwi, w, c)
+        out = fft_cuda.highpass_expand(x3, uhr, uhi, *s)
+        u, tr, ti = fft_cuda.highpass_bwd_contract(x3, g3, uhr, uhi, *s)
+        r = fft_cuda.w_axis_middle(tr, ti, vwr.T, vwi.T, uwr.T, uwi.T, w, c)
+        dx = fft_cuda.highpass_bwd_expand(u, vr32, vi32, *r)
+        nms = edge_cuda.fused_canny(img, mode="improve")
+        grown, _ = edge_cuda.hysteresis(nms, 0.3, 0.6)
+        conv = conv_cuda.conv3x3(_x((1, 33, 70, 64), torch.bfloat16, dev, seed=2),
+                                 _x((3, 3, 64, 64), torch.bfloat16, dev, seed=3))
+        outs = [*t, out, u, tr, ti, dx, nms, grown, conv]
+    torch.cuda.synchronize(dev)
+    return [o.float().cpu() for o in outs]
+
+
+def test_launch_on_the_operands_card(cuda):
+    """A kernel launches on the card of its operands whatever the calling
+    thread's current card is (the multi-device Predictor runs a shard on
+    each card from one thread): the same bits as a launch from that card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: a launch from a thread whose current card is not the "
+                    "operands' is not verified on a one-card machine")
+    for mine, other in ((0, 1), (1, 0)):
+        dev = torch.device("cuda", mine)
+        with torch.cuda.device(mine):
+            want = _every_kernel(dev)
+        with torch.cuda.device(other):
+            got = _every_kernel(dev)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_shared_memory_attribute_is_set_per_card(cuda):
+    """The dynamic shared memory a kernel may take is set on each card it
+    launches on (``csrc/device_once.cuh``): after launches on card 0 the
+    libraries report their attributes set there, and none on a card index
+    that was never launched on; on a second card, set there too."""
+    from eelunet_tpu_torch.ops import _build
+
+    n = torch.cuda.device_count()
+    _every_kernel(torch.device("cuda", 0))
+    libs = ("highpass", "highpass_bwd", "conv3x3")
+    for lib in libs:
+        assert _build.configured_on(lib, 0) >= 1, lib
+        assert _build.configured_on(lib, n) == 0, lib
+    if n > 1:
+        with torch.cuda.device(0):
+            _every_kernel(torch.device("cuda", 1))
+        for lib in libs:
+            assert _build.configured_on(lib, 1) >= 1, lib
 
 
 # Tiles of the tensor-core kernels 1 (128 columns x 32 rows of H), 2 (128 x

@@ -30,6 +30,6 @@ def test_port_imports_no_jax():
     n_modules = int(proc.stdout.split()[0])
     # every module of the serving, training and Canny slices, the families,
     # cli.predict, cli.pack, the packed and device-cached feeds, the
-    # profiler, and prune, prune_physical, quantize, export, cli.prune and
-    # cli.export
-    assert n_modules >= 55, proc.stdout
+    # profiler, prune, prune_physical, quantize, export, cli.prune and
+    # cli.export, and parallel/ (the package, distributed and mesh)
+    assert n_modules >= 58, proc.stdout

@@ -68,7 +68,9 @@ def test_predictor_tiled_and_tta_match_jax(setup, tile):
 def test_predict_refuses_what_is_not_ported(setup, tmp_path):
     """``--quantize int8`` is ported and writes masks; a slim checkpoint
     refuses the Canny flags, as in the JAX package; a missing checkpoint
-    and the Canny flags with ``--tile`` stay refused."""
+    and the Canny flags with ``--tile`` stay refused, and so do a mesh's
+    ``model`` and ``spatial`` axes; a data axis larger than the devices
+    raises JAX's ValueError."""
     s = setup
     base = _args(s) + ["--device", "cpu", "--results_dir", str(tmp_path)]
     out = predict_cli.main(base + ["--checkpoint", s["npz"], "--quantize", "int8"])
@@ -83,6 +85,11 @@ def test_predict_refuses_what_is_not_ported(setup, tmp_path):
     with pytest.raises(ValueError, match="--tile"):
         predict_cli.main(base + ["--checkpoint", s["npz"], "--tile", "32",
                                  "--set", "data.canny_enhance=true"])
+    with pytest.raises(ValueError, match="needs more than 1 devices"):
+        predict_cli.main(base + ["--checkpoint", s["npz"], "--set", "mesh.data_axis=2"])
+    for axis in ("model", "spatial"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            predict_cli.main(base + ["--checkpoint", s["npz"], "--set", f"mesh.{axis}_axis=2"])
 
 
 def test_service_serves_masks_of_the_predictor(setup):

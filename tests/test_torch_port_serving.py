@@ -60,8 +60,9 @@ def test_predictor_matches_jax(predictors):
 def test_dispatch_collect_and_buckets(predictors):
     _, pred = predictors
     u8 = np.random.default_rng(5).integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
-    out, b, _ = handle = pred.dispatch_proba(u8)
-    assert b == 3 and out.shape[0] == 4  # padded to the bucket, on the device
+    outs, b, _ = handle = pred.dispatch_proba(u8)
+    # padded to the bucket, on the device (one output per device of the mesh)
+    assert b == 3 and [o.shape[0] for o in outs] == [4]
     np.testing.assert_array_equal(pred.collect(handle), pred.predict_proba(u8))
     mask = pred.predict_mask_wire(u8)
     assert mask.dtype == np.uint8 and mask.shape == (3, 64, 64, 1)
@@ -151,14 +152,24 @@ def test_predictor_without_a_card_raises():
 
 
 def test_out_of_scope_options_raise():
-    """A mesh (multi-device serving) is still refused. int8 and slim
-    checkpoints are ported: an unknown quantize mode and a ``slim_init``
-    without its ``widths.json`` raise, and ``quantize="int8"`` serves."""
+    """A mesh's ``model`` and ``spatial`` axes are still refused, naming the
+    next slice, and a data axis larger than the devices raises JAX's
+    ValueError; the data axis is ported (test_torch_port_multidevice_serving.py).
+    int8 and slim checkpoints are ported: an unknown quantize mode and a
+    ``slim_init`` without its ``widths.json`` raise, and ``quantize="int8"``
+    serves."""
+    from eelunet_tpu_torch.parallel.mesh import Mesh, create_mesh
+
     cfg = ModelConfig(name="eelunet")
     with pytest.raises(ValueError, match="quantize"):
         Predictor(cfg, quantize="int4", device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Predictor(cfg, mesh=object(), device="cpu")
+    for shape in ((1, 2, 1), (1, 1, 2)):
+        grid = np.empty(2, dtype=object)
+        grid[:] = [torch.device("cpu")] * 2
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Predictor(cfg, mesh=Mesh(grid.reshape(shape)), device="cpu")
+    with pytest.raises(ValueError, match="needs more than 1 devices"):
+        Predictor(cfg, mesh=create_mesh(2, devices=["cpu"]), device="cpu")
     with pytest.raises(FileNotFoundError, match="widths.json"):
         Predictor(ModelConfig(name="eelunet", slim_init="slim_dir"), device="cpu")
     with pytest.raises(ValueError, match="slim_init supports unet/eelunet"):

@@ -253,8 +253,14 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="--device cpu"):
         Trainer(TrainConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the data axis is ported (tests/test_torch_port_ddp.py): one process
+    # has one device, so a data axis of 2 is JAX's ValueError; the model and
+    # spatial axes are the next slice
+    with pytest.raises(ValueError, match="needs more than 1 devices"):
         Trainer(apply_overrides(TrainConfig(), ["mesh.data_axis=2"]), device="cpu")
+    for axis in ("model", "spatial"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Trainer(apply_overrides(TrainConfig(), [f"mesh.{axis}_axis=2"]), device="cpu")
     # slim checkpoints are ported: a slim_init without its widths.json is
     # an error of the path, not a refusal
     with pytest.raises(FileNotFoundError, match="widths.json"):
