@@ -132,11 +132,9 @@ Phases (any failure exits non-zero; none is skipped):
    Predictor); (12c) ``Predictor(quantize="int8")`` at b16: its op counts
    equal the CPU's, probabilities within 0.1 of bf16, one eligible conv's
    int product through im2col and ``torch._int_mm`` equal to the float64
-   twin, with its breakdown, and both Predictors timed in turns; (12d)
-   ``cli.export`` (buckets 1 and 8), ``cli.serve --artifact`` answering a
-   batch of 3 equal to the Predictor on the low-rank high-pass, the
-   artifact timed beside it, and an int8 artifact at bucket 1 equal to the
-   int8 Predictor. Its entry points' launches join the JSON line's.
+   twin, with its breakdown, and both Predictors timed in turns; (12d) an
+   int8 artifact at bucket 1 equal to the int8 Predictor (the two-platform
+   artifact is 14e). Its entry points' launches join the JSON line's.
 13. Data parallelism, with ``torch.cuda.device_count()`` printed: (13a)
    two ranks over gloo on card 0, spawned from here (full-width EELUnet,
    512^2, bf16 autocast, global batch 8 = 4 per rank, phase 6's batches):
@@ -155,6 +153,28 @@ Phases (any failure exits non-zero; none is skipped):
    shard, then ``cli.serve --set mesh.data_axis=-1`` answering requests.
    Where only one card is present it says that launches across two
    physical cards are not verified. Its launches join the JSON line's.
+14. The last entry points and utilities, on the full-width EELUnet at
+   512^2 bf16: (14a) ``torchrun --standalone --nproc_per_node=<cards> -m
+   eelunet_tpu_torch.cli.prune --physical --prune_amount 0.3
+   --finetune_epochs 1`` (NCCL) on phase 7's best tag and tree: rank 0's
+   launches as 12b's, one tag and one ``_slim`` written, the masked channels
+   zero, and ``cli.evaluate`` on the slim checkpoint equal to the printed
+   slim metrics; (14b) ``utils/flops.count_matmul_flops`` of the served
+   forward (b16, the Predictor on kernels 1 and 2, equal to the meta
+   device's count) and of one train step (b8, kernels 1-4), and U-Net's
+   forward on the meta device: FLOPs per image and MFU from phases 5, 6 and
+   10's times, beside the card's name and power limit; (14c) ``cli.train
+   --summary`` for one step on a 3-image tree: the table's total equals
+   ``param_count`` (26.26 M); (14d) ``cli.visualize --max_depth 1`` on
+   phase 7's best tag: kernels 1 and 2 twice, the probability map within
+   phase 5's bf16 bound of the Predictor's; (14e) ``cli.export --platforms
+   cuda,cpu`` (buckets 1 and 8): ``cli.serve --artifact`` on the card
+   answering a batch of 3 equal to the Predictor on the low-rank high-pass,
+   the artifact timed beside the Predictors, the cpu programs of the same
+   artifact on the CPU (a batch of 2) equal to the low-rank Predictor there,
+   and ``cli.export_torch`` of the best tag read back by
+   ``models/convert.from_upstream_state_dict`` equal bit for bit. The
+   launches of 14a, 14c and 14d join the JSON line's.
 
 The line before the last holds the kernels' JSON record, the one before it
 the card's name and power limit, and the one before that the hysteresis
@@ -1521,6 +1541,11 @@ def _family_phase(name: str, workdir: str, raw_batches):
     return {"forward_ms": fwd_ms, "step_ms": step_ms, "peak_gib": peak}
 
 
+# Each family's served forward and step times (ms) in this run; phase 14
+# reads U-Net's forward.
+FAMILY_TIMES = {}
+
+
 def phase_families(workdir: str, tree: str):
     """The other five families (six models): each in-process, then EGE-UNet
     through cli.train with both Canny flags (the edge channel among them)
@@ -1530,7 +1555,7 @@ def phase_families(workdir: str, tree: str):
     t0 = time.monotonic()
     raw_batches = _train_batches(2, 8, SEED + 7)
     for name in FAMILIES:
-        _family_phase(name, workdir, raw_batches)
+        FAMILY_TIMES[name] = _family_phase(name, workdir, raw_batches)
 
     # both Canny flags, as phase 9: the edge channel and the enhancement
     flags = [a for f in CANNY_FLAGS for a in ("--set", f)]
@@ -2289,66 +2314,30 @@ def _phase12_int8(best: str, u8):
 
 
 def _phase12_export(workdir: str, best: str):
-    """12d: cli.export at 512^2 (buckets 1 and 8) on the card, cli.serve
-    --artifact answering a ragged batch of 3, the artifact against the
-    Predictor pinned to the low-rank high-pass, an int8 artifact at bucket 1,
-    and the artifact's forward timed beside the Predictor's."""
-    import dataclasses
-
+    """12d: an int8 artifact at bucket 1 on the card against the int8
+    Predictor (the two-platform artifact and cli.serve --artifact are 14e)."""
     import torch
 
     from eelunet_tpu_torch.config import ModelConfig
     from eelunet_tpu_torch.export import ExportedModel, export_model
     from eelunet_tpu_torch.inference import Predictor
 
-    art = os.path.join(workdir, "artifact")
-    stdout, el, wall = _cli("12d", "export", [
-        "--model_type", "eelunet", "--checkpoint", best, "--image_size", "512", "--set",
-        "model.dtype=bfloat16", "--batch_sizes", "1,8", "--output", art])
-    check(set(el.values()) == {0}, f"export launches {el}")
-    u8 = np.random.default_rng(SEED + 14).integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)
-    u8[3:] = 0  # the rows the artifact pads a batch of 3 with
-    with _server(None, workdir, "eelunet", "12d", extra=("--artifact", art)) as base:
-        code, body, _ = _http(base + "/v1/predict", _npy(u8[:3]))
-        got = np.load(io.BytesIO(body))
     cfg = ModelConfig(name="eelunet", dtype="bfloat16", highpass_impl="lowrank")
-    lowrank = Predictor(cfg, checkpoint=best, device="cuda", bucket_batches=False,
-                        proba_wire_dtype="float32")
-    want = lowrank.predict_proba(u8)[:3]
-    d = float(np.abs(got - want).max())
-    print(f"[12d] cli.export {wall:.1f} s: {stdout.splitlines()[0]}; cli.serve --artifact, "
-          f"a batch of 3 (bucket 8): HTTP {code}, max |d| to the low-rank Predictor {d:.3e} "
-          f"(bound {ARTIFACT_TOL:g})", flush=True)
-    check(code == 200 and got.shape == (3, 512, 512, 1) and d <= ARTIFACT_TOL,
-          f"artifact vs Predictor: {d}")
-    model = ExportedModel(art)
-    x = torch.from_numpy(u8).cuda()
-    kernels = Predictor(dataclasses.replace(cfg, highpass_impl="auto"), checkpoint=best,
-                        device="cuda", bucket_batches=False)
-    with torch.inference_mode():
-        fns = (lambda: model._fns[8](x), lambda: lowrank._probs(x), lambda: kernels._probs(x))
-        turns = [cuda_ms(f, iters=5) for f in fns + fns[::-1]]
-    ms = {n: (turns[i] + turns[5 - i]) / 2 for i, n in enumerate(("artifact", "lowrank",
-                                                                   "kernels"))}
-    print(f"[12d] forward 512^2 b8 bf16: artifact {ms['artifact']:.2f} ms, Predictor on the "
-          f"low-rank high-pass {ms['lowrank']:.2f} ms, Predictor on the kernels "
-          f"{ms['kernels']:.2f} ms (turns {[round(t, 2) for t in turns]})", flush=True)
-    del model, kernels
+    u8 = np.random.default_rng(SEED + 14).integers(0, 256, (1, 512, 512, 3), dtype=np.uint8)
     t0 = time.monotonic()
     qart = export_model(cfg, best, (512, 512), (1,), os.path.join(workdir, "artifact_int8"),
-                        quantize="int8", device="cuda")
+                        platforms=("cuda",), quantize="int8")
     qwall = time.monotonic() - t0
     quant = Predictor(cfg, checkpoint=best, device="cuda", bucket_batches=False,
                       quantize="int8", proba_wire_dtype="float32")
-    qd = float(np.abs(ExportedModel(qart).predict_proba(u8[:1])
-                      - quant.predict_proba(u8[:1])).max())
+    qd = float(np.abs(ExportedModel(qart, device="cuda").predict_proba(u8)
+                      - quant.predict_proba(u8)).max())
     print(f"[12d] int8 artifact (bucket 1, exported in {qwall:.1f} s; _int_mm traced): max "
           f"|d| to the int8 Predictor on the low-rank high-pass {qd:.3e} (bound "
           f"{ARTIFACT_TOL:g})", flush=True)
     check(qd <= ARTIFACT_TOL, f"int8 artifact vs Predictor: {qd}")
-    del lowrank, quant
+    del quant
     torch.cuda.empty_cache()
-    return ms
 
 
 def phase_compression(workdir: str, tree: str, best: str):
@@ -2383,12 +2372,12 @@ def phase_compression(workdir: str, tree: str, best: str):
     t2 = time.monotonic()
     q_launches, q_ms = _phase12_int8(best, u8)
     t3 = time.monotonic()
-    a_ms = _phase12_export(workdir, best)
+    _phase12_export(workdir, best)
     for k in q_launches:
         launches[k] += q_launches[k]
     print(f"[12] compression and deployment phase: {time.monotonic() - t0:.1f} s (12a "
           f"{t1 - t0:.1f}, 12b {t2 - t1:.1f}, 12c {t3 - t2:.1f}, 12d {time.monotonic() - t3:.1f}); "
-          f"launches {launches}; times {slim_ms | q_ms | a_ms}", flush=True)
+          f"launches {launches}; times {slim_ms | q_ms}", flush=True)
     return launches
 
 
@@ -2653,6 +2642,267 @@ def phase_multidevice(workdir: str, tree: str, best: str):
     return launches
 
 
+# ------------------------------------------------ phase 14: the last entry points
+
+def _phase14_prune(workdir: str, tree: str, best: str, n: int):
+    """14a: cli.prune --physical under torchrun, one rank per card (NCCL), on
+    phase 7's best tag and tree; cli.evaluate on its slim checkpoint."""
+    import torch
+
+    from eelunet_tpu_torch.inference import read_checkpoint
+    from eelunet_tpu_torch.prune_physical import eelunet_prune_masks, is_slim_checkpoint
+
+    save = os.path.join(workdir, "ckpt_prune14")
+    common = ["--model_type", "eelunet", "--data_dir", tree, "--image_size", "512",
+              "--batch_size", "8", "--set", "model.dtype=bfloat16", "--seed", str(SEED),
+              "--save_dir", save, "--set", f"log_dir={os.path.join(workdir, 'runs_prune14')}"]
+    stdout, pl, wall = _cli("14a", "prune", common + [
+        "--checkpoint", best, "--physical", "--prune_amount", "0.3", "--finetune_epochs", "1"],
+        nproc=n)
+    check(f"Distributed runtime: {n} processes" in stdout, "14a: cli.prune joined no group")
+    want = {k: 2 * (PRUNE_FORWARDS if k in FWD else PRUNE_STEPS) for k in HIGHPASS}
+    want.update(fused_canny=0, hysteresis=0, conv3x3=0)
+    check(pl == want, f"14a cli.prune launches (rank 0) {pl}, want {want}")
+    root = os.path.join(save, "eelunet")
+    written = sorted(os.listdir(root))
+    check(written == ["eelunet_pruned_30", "eelunet_pruned_30_slim"],
+          f"14a: cli.prune wrote {written}, want one tag and one slim checkpoint")
+    tag = os.path.join(root, "eelunet_pruned_30")
+    check(is_slim_checkpoint(tag + "_slim"), "14a: no slim checkpoint")
+    masks, _ = eelunet_prune_masks(read_checkpoint(best, "eelunet"), 0.3, 32)
+    tuned = torch.load(os.path.join(tag, "state.pt"), map_location="cpu",
+                       weights_only=True)["model"]
+    leaked = [k for k, m in masks.items() if bool((tuned[k][m == 0] != 0).any())]
+    check(not leaked, f"14a: masked channels not zero after the finetune: {leaked[:4]}")
+    m_prune = json.loads(stdout.split("slim metrics: ", 1)[1].splitlines()[0])
+    stdout_e, el, _ = _cli("14a", "evaluate", common + ["--checkpoint", tag + "_slim"])
+    m_eval = json.loads(stdout_e.split("metrics: ", 1)[1].splitlines()[0])
+    check(m_eval == m_prune, f"14a: cli.evaluate on the slim checkpoint {m_eval} != cli.prune's "
+          f"{m_prune}")
+    print(f"[14a] torchrun --nproc_per_node={n} cli.prune --physical: {wall:.1f} s wall, launches "
+          f"(rank 0) {pl}; wrote {written} once; masked channels zero after the finetune; "
+          f"cli.evaluate on the slim checkpoint equals the printed slim metrics "
+          f"{ {k: round(v, 4) for k, v in m_eval.items()} }", flush=True)
+    return {k: pl[k] + el[k] for k in pl}
+
+
+def _phase14_flops(best: str, card: str, times: dict):
+    """14b: FLOPs per image of the served forward (b16, the Predictor on the
+    kernels) and of one train step (b8, kernels 1-4) counted on the card, the
+    U-Net's forward on the meta device, and MFU from this run's times."""
+    import torch
+
+    from eelunet_tpu_torch.config import ModelConfig, TrainConfig, apply_overrides
+    from eelunet_tpu_torch.data.augment import make_input_preprocess
+    from eelunet_tpu_torch.inference import Predictor
+    from eelunet_tpu_torch.ops import fft_cuda
+    from eelunet_tpu_torch.train.trainer import Trainer
+    from eelunet_tpu_torch.utils.flops import count_matmul_flops, model_forward_flops, mfu_pct
+
+    kind = torch.cuda.get_device_name(0)
+    pred = Predictor(ModelConfig(name="eelunet", dtype="bfloat16"), checkpoint=best,
+                     device="cuda")
+    pred.model.requires_grad_(False)
+    u8 = np.random.default_rng(SEED + 15).integers(0, 256, (16, 512, 512, 3), dtype=np.uint8)
+    fft_cuda.reset_launches()
+    with torch.inference_mode():
+        fwd = count_matmul_flops(pred._probs, torch.from_numpy(u8).cuda()) / 16
+    launched = dict(fft_cuda.LAUNCHES)
+    meta = model_forward_flops("eelunet", 512, batch=16) / 16
+    check(launched["highpass_contract"] == 2 and abs(fwd - meta) <= 1e-9 * meta,
+          f"14b: forward counted on the kernels {fwd} (launches {launched}) != the meta "
+          f"device's {meta}")
+    del pred
+    cfg = apply_overrides(TrainConfig(), ["model.name=eelunet", "model.dtype=bfloat16",
+                                          "data.image_size=512", "data.batch_size=8",
+                                          f"seed={SEED}"])
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init_state(steps_per_epoch=1)
+    x, y = _train_batches(1, 8, SEED + 4)[0]
+    images, labels = make_input_preprocess(cfg.data)(torch.from_numpy(x).cuda(),
+                                                     torch.from_numpy(y).cuda())
+    step = trainer._get_step("train")
+    fft_cuda.reset_launches()
+    train = count_matmul_flops(step, state, images, labels) / 8
+    check(fft_cuda.LAUNCHES["highpass_bwd_expand"] == 2, f"14b: step launches {fft_cuda.LAUNCHES}")
+    del trainer, state, images, labels
+    torch.cuda.empty_cache()
+    unet = model_forward_flops("unet", 512, batch=16) / 16
+    hp = "; the high-pass as its low-rank contractions"
+    rows = (("EELUnet forward b16", fwd, 16e3 / times["forward_ms"], "phase 5", hp),
+            ("EELUnet train step b8", train, 8e3 / times["step_ms"], "phase 6", hp),
+            ("U-Net forward b16", unet, 16e3 / times["unet_forward_ms"], "phase 10", ""))
+    for name, flops, ips, src, note in rows:
+        mfu = mfu_pct(ips, flops, kind)
+        print(f"[14b] {name}: {flops / 1e9:.3f} GFLOP per image (512^2{note}); "
+              f"{ips:.1f} img/s ({src}, this run) -> "
+              f"{ips * flops / 1e12:.1f} TFLOP/s, MFU "
+              + (f"{mfu:.2f}%" if mfu is not None else "unknown (card not in the peak table)")
+              + f" of the dense bf16 peak; card: {card}", flush=True)
+    check(2.5 < train / fwd < 3.5, f"14b: a step counts {train / fwd:.2f} forwards")
+
+
+def _phase14_summary(workdir: str):
+    """14c: cli.train --summary on a 3-image tree at 512^2 (one step of 2):
+    the table's total equals param_count. Returns its launches."""
+    from eelunet_tpu_torch.config import ModelConfig
+    from eelunet_tpu_torch.data.synthetic import write_synthetic_tree
+    from eelunet_tpu_torch.registry import create_model
+    from eelunet_tpu_torch.utils.summary import param_count
+
+    tree = write_synthetic_tree(os.path.join(workdir, "tree14"), n_train=3, n_test=1,
+                                image_size=(512, 512), seed=SEED)
+    stdout, launches, wall = _cli("14c", "train", [
+        "--model_type", "eelunet", "--data_dir", tree, "--image_size", "512", "--batch_size",
+        "2", "--set", "model.dtype=bfloat16", "--set", "epochs=1", "--seed", str(SEED),
+        "--save_dir", os.path.join(workdir, "ckpt14"), "--log_dir",
+        os.path.join(workdir, "runs14"), "--summary"])
+    total = next(ln for ln in stdout.splitlines() if ln.startswith("Total params: "))
+    n = param_count(create_model(ModelConfig(name="eelunet"), device="meta")[0])
+    rows = sum(1 for ln in stdout.splitlines() if ln.startswith(("enc", "dec", "edge_", "pred")))
+    print(f"[14c] cli.train --summary: {wall:.1f} s wall; {rows} rows, '{total}' "
+          f"(param_count {n / 1e6:.2f} M); launches {launches}", flush=True)
+    check(total == f"Total params: {n:,}" and round(n / 1e6, 2) == 26.26,
+          f"14c: {total} != param_count {n}")
+    check(stdout.index("Total params") < stdout.index("Epoch [1/1]"), "14c: table after training")
+    return launches
+
+
+def _phase14_visualize(workdir: str, tree: str, best: str):
+    """14d: cli.visualize on phase 7's best tag (--max_depth 1): its
+    probability map against the Predictor's. Returns its launches."""
+    from PIL import Image
+
+    from eelunet_tpu_torch.config import ModelConfig
+    from eelunet_tpu_torch.inference import Predictor
+
+    stdout, launches, wall = _cli("14d", "visualize", [
+        "--model_type", "eelunet", "--data_dir", tree, "--image_size", "512", "--set",
+        "model.dtype=bfloat16", "--seed", str(SEED), "--checkpoint", best, "--max_depth", "1",
+        "--results_dir", os.path.join(workdir, "viz")])
+    out_dir = stdout.split(" feature grids to ", 1)[1].splitlines()[0].strip()
+    files = sorted(os.listdir(out_dir))
+    test_dir = os.path.join(tree, "test", "images")
+    u8 = np.asarray(Image.open(os.path.join(test_dir, sorted(os.listdir(test_dir))[0]))
+                    .convert("RGB"))[None]
+    want = Predictor(ModelConfig(name="eelunet", dtype="bfloat16"), checkpoint=best,
+                     device="cuda").predict_proba(u8)[0, ..., 0]
+    got = np.asarray(Image.open(os.path.join(out_dir, "probabilities.png"))) / 255.0
+    d = float(np.abs(got - np.floor(np.clip(want, 0, 1) * 255) / 255).max())
+    bound = MODEL_TOL["bfloat16"] + 1 / 255  # the PNG keeps floor(255 p)
+    print(f"[14d] cli.visualize --max_depth 1: {wall:.1f} s wall, {len(files)} files "
+          f"({len(files) - 3} feature grids), launches {launches}; probabilities.png vs the "
+          f"Predictor's max|d| {d:.3e} (bound {bound:.3e}: phase 5's bf16 bound and the "
+          f"PNG's rounding)", flush=True)
+    check(launches == {k: 2 if k in FWD else 0 for k in (*HIGHPASS, "fused_canny", "hysteresis",
+                                                         "conv3x3")},
+          f"14d launches {launches}")
+    check(d <= bound and {"input.png", "mask.png", "enc1.png", "pred1_out0.png"} <= set(files),
+          f"14d: probabilities {d}, files {files[:6]}")
+    return launches
+
+
+def _phase14_export(workdir: str, best: str):
+    """14e: cli.export --platforms cuda,cpu (buckets 1 and 8): cli.serve
+    --artifact on the card answering a batch of 3, the cuda programs timed
+    beside the Predictors, the cpu programs on the CPU; cli.export_torch of
+    the best tag read back."""
+    import dataclasses
+
+    import torch
+
+    from eelunet_tpu_torch.cli import export_torch
+    from eelunet_tpu_torch.config import ModelConfig
+    from eelunet_tpu_torch.export import ExportedModel
+    from eelunet_tpu_torch.inference import Predictor, read_checkpoint
+    from eelunet_tpu_torch.models.convert import from_upstream_state_dict
+
+    art = os.path.join(workdir, "artifact")
+    stdout, el, wall = _cli("14e", "export", [
+        "--model_type", "eelunet", "--checkpoint", best, "--image_size", "512", "--set",
+        "model.dtype=bfloat16", "--batch_sizes", "1,8", "--output", art, "--platforms",
+        "cuda,cpu"])
+    check(set(el.values()) == {0}, f"export launches {el}")
+    files = sorted(os.listdir(art))
+    check(files == ["b1.cpu.pt2", "b1.cuda.pt2", "b8.cpu.pt2", "b8.cuda.pt2", "meta.json"],
+          f"14e: artifact files {files}")
+    u8 = np.random.default_rng(SEED + 14).integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)
+    u8[3:] = 0  # the rows the artifact pads a batch of 3 with
+    with _server(None, workdir, "eelunet", "14e", extra=("--artifact", art)) as base:
+        code, body, _ = _http(base + "/v1/predict", _npy(u8[:3]))
+        got = np.load(io.BytesIO(body))
+    cfg = ModelConfig(name="eelunet", dtype="bfloat16", highpass_impl="lowrank")
+    lowrank = Predictor(cfg, checkpoint=best, device="cuda", bucket_batches=False,
+                        proba_wire_dtype="float32")
+    want = lowrank.predict_proba(u8)[:3]
+    d = float(np.abs(got - want).max())
+    print(f"[14e] cli.export --platforms cuda,cpu {wall:.1f} s: {files}; cli.serve --artifact, "
+          f"a batch of 3 (bucket 8) on the card: HTTP {code}, max |d| to the low-rank "
+          f"Predictor {d:.3e} (bound {ARTIFACT_TOL:g})", flush=True)
+    check(code == 200 and got.shape == (3, 512, 512, 1) and d <= ARTIFACT_TOL,
+          f"artifact vs Predictor: {d}")
+    model = ExportedModel(art, device="cuda")
+    x = torch.from_numpy(u8).cuda()
+    kernels = Predictor(dataclasses.replace(cfg, highpass_impl="auto"), checkpoint=best,
+                        device="cuda", bucket_batches=False)
+    with torch.inference_mode():
+        fns = (lambda: model._fns[8](x), lambda: lowrank._probs(x), lambda: kernels._probs(x))
+        turns = [cuda_ms(f, iters=5) for f in fns + fns[::-1]]
+    ms = {n: (turns[i] + turns[5 - i]) / 2 for i, n in enumerate(("artifact", "lowrank",
+                                                                   "kernels"))}
+    print(f"[14e] forward 512^2 b8 bf16: artifact {ms['artifact']:.2f} ms, Predictor on the "
+          f"low-rank high-pass {ms['lowrank']:.2f} ms, Predictor on the kernels "
+          f"{ms['kernels']:.2f} ms (turns {[round(t, 2) for t in turns]})", flush=True)
+    del model, kernels, lowrank
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    on_cpu = ExportedModel(art, device="cpu").predict_proba(u8[:2])
+    t1 = time.monotonic()
+    cpu_want = Predictor(cfg, checkpoint=best, device="cpu", bucket_batches=False,
+                         proba_wire_dtype="float32").predict_proba(u8[:2])
+    t2 = time.monotonic()
+    dc = float(np.abs(on_cpu - cpu_want).max())
+    print(f"[14e] the same artifact's cpu programs on the CPU, a batch of 2 (bucket 8): "
+          f"{t1 - t0:.1f} s, max |d| to the low-rank Predictor on the CPU ({t2 - t1:.1f} s) "
+          f"{dc:.3e} (bound {ARTIFACT_TOL:g})", flush=True)
+    check(on_cpu.shape == (2, 512, 512, 1) and dc <= ARTIFACT_TOL, f"cpu programs: {dc}")
+
+    pth = os.path.join(workdir, "eelunet_for_torch.pth")
+    with contextlib.redirect_stdout(io.StringIO()) as line:
+        export_torch.main(["--model_type", "eelunet", "--checkpoint", best, "--output", pth])
+    back = from_upstream_state_dict(torch.load(pth, weights_only=True), "eelunet")
+    tag = read_checkpoint(best, "eelunet")
+    same = back.keys() == tag.keys() and all(torch.equal(back[k], tag[k]) for k in tag)
+    print(f"[14e] {line.getvalue().strip()}; read back by from_upstream_state_dict: equal to "
+          f"the tag's weights bit for bit: {same}", flush=True)
+    check(same, "14e: cli.export_torch round trip")
+    return ms
+
+
+def phase_last_entry_points(workdir: str, tree: str, best: str, card: str, times: dict):
+    """Phase 14 (module docstring). Returns the launches of its entry points:
+    cli.prune under torchrun and cli.evaluate (14a), cli.train --summary
+    (14c) and cli.visualize (14d)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    t0 = time.monotonic()
+    launches = _phase14_prune(workdir, tree, best, n)
+    t1 = time.monotonic()
+    _phase14_flops(best, card, times)
+    t2 = time.monotonic()
+    for part in (_phase14_summary(workdir), _phase14_visualize(workdir, tree, best)):
+        for k, v in part.items():
+            launches[k] += v
+    t3 = time.monotonic()
+    a_ms = _phase14_export(workdir, best)
+    print(f"[14] last entry points: {time.monotonic() - t0:.1f} s (14a {t1 - t0:.1f}, 14b "
+          f"{t2 - t1:.1f}, 14c+d {t3 - t2:.1f}, 14e {time.monotonic() - t3:.1f}); launches "
+          f"{launches}; times {a_ms}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2669,7 +2919,7 @@ def main() -> int:
         ckpt = os.path.join(workdir, "eelunet_random.npz")
         sd = _random_upstream_checkpoint(cfg, ckpt)
         served = phase_serve(ckpt, workdir)
-        phase_model(sd, cfg)
+        times = phase_model(sd, cfg)
         del sd
         step = phase_train(workdir)
         trained, tree = phase_train_cli(workdir)
@@ -2679,8 +2929,10 @@ def main() -> int:
         best = os.path.join(workdir, "ckpt", "eelunet", "eelunet_best.npz")
         compression = phase_compression(workdir, tree, best)
         multidevice = phase_multidevice(workdir, tree, best)
+        times.update(step_ms=step["step_ms"], unet_forward_ms=FAMILY_TIMES["unet"]["forward_ms"])
+        last = phase_last_entry_points(workdir, tree, best, card, times)
     launches = {k: served.get(k, 0) + trained[k] + canny[k] + families[k] + multiclass[k]
-                + compression.get(k, 0) + multidevice.get(k, 0)
+                + compression.get(k, 0) + multidevice.get(k, 0) + last.get(k, 0)
                 for k in (*KERNELS, "hysteresis")}
     print(f"[8] all phases passed in {time.monotonic() - t0:.1f} s")
     hyst = record.pop("hysteresis")

@@ -9,9 +9,11 @@ The artifact (``eelunet_tpu_torch/export.py``) embeds the weights and the
 preprocessing and runs with torch alone through ``ExportedModel``; ``python
 -m eelunet_tpu_torch.cli.serve --artifact DIR`` serves it. ``--checkpoint``
 takes what ``cli.serve`` takes, a slim checkpoint included; empty exports
-the seeded random init. The programs are exported for the device the run is
-on: the CUDA card, or ``--device cpu``. The last line is the run's
-``kernel launches:`` (all 0: no hand-written kernel enters an artifact).
+the seeded random init. Each bucket is exported for each of ``--platforms``
+(default ``cuda,cpu``, as the JAX CLI's ``tpu,cpu``), traced on that device,
+so the artifact serves on the card or on a CPU-only host; ``cuda`` needs a
+card (``--platforms cpu`` without one). The last line is the run's ``kernel
+launches:`` (all 0: no hand-written kernel enters an artifact).
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ def main(argv=None):
                    "seeded random init")
     p.add_argument("--batch_sizes", type=str, default="1,8")
     p.add_argument("--output", type=str, required=True)
+    p.add_argument("--platforms", type=str, default="cuda,cpu",
+                   help="devices to export the programs for, each traced there "
+                   "(cuda needs a card)")
     p.add_argument("--quantize", type=str, default="", choices=["", "int8"],
                    help="int8: bake W8A8 dynamic-scale convs and dots into the artifact")
     args = p.parse_args(argv)
@@ -40,7 +45,8 @@ def main(argv=None):
         cfg.model, args.checkpoint or None, cfg.data.image_size,
         [int(b) for b in args.batch_sizes.split(",")], args.output,
         cfg.data.normalize_mean, cfg.data.normalize_std,
-        quantize=args.quantize or None, device=args.device)
+        [s.strip() for s in args.platforms.split(",") if s.strip()],
+        quantize=args.quantize or None)
     print(f"exported {cfg.model.name} -> {out}: {', '.join(sorted(os.listdir(out)))}")
     # the export pins the low-rank high-pass: no hand-written kernel runs
     print("kernel launches: " + json.dumps(kernel_launches()), flush=True)

@@ -20,6 +20,15 @@ as ``<path>_slim`` (``model.pt`` + ``widths.json``), which ``cli.evaluate``,
 ``--device cpu`` is the only way onto the CPU. The slim metrics are printed
 unrounded on a ``slim metrics:`` line; the last line is the run's
 ``kernel launches:``.
+
+Data-parallel, one process per card, as ``cli.train``:
+
+    torchrun --standalone --nproc_per_node=<cards> -m eelunet_tpu_torch.cli.prune ...
+
+The finetune is DDP over the ranks (``--batch_size`` is the global batch),
+the masks are multiplied in again on every rank after each step, and each
+evaluation reduces the metric counts of the whole test split over the
+ranks. Only rank 0 prints and writes the tag and ``<path>_slim``.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import types
 import torch
 
 from eelunet_tpu_torch.cli.common import base_parser, build_loaders, kernel_launches, load_config
+from eelunet_tpu_torch.config import apply_overrides
 from eelunet_tpu_torch.inference import read_checkpoint
 from eelunet_tpu_torch.prune import (
     apply_masks,
@@ -65,17 +75,36 @@ def main(argv=None):
     if args.prune_round_to == 0:
         args.prune_round_to = (32 if cfg.model.name == "eelunet" else 64) if args.physical else 1
 
-    from eelunet_tpu_torch.train.trainer import Trainer
+    from eelunet_tpu_torch.parallel.distributed import (
+        init_distributed,
+        is_primary,
+        process_count,
+        shutdown_distributed,
+        sync_seed,
+    )
+    from eelunet_tpu_torch.parallel.mesh import create_mesh
+    from eelunet_tpu_torch.train.trainer import Trainer, check_supported
+    from eelunet_tpu_torch.utils.seeding import set_seed
 
-    trainer = Trainer(cfg, device=args.device)
+    # As cli.train: join the ranks (each onto its own card), then one seed
+    # for all, so that the ranks' rows partition each global batch.
+    distributed = init_distributed(device=args.device)
+    say = print if is_primary() else (lambda *a, **k: None)
+    if distributed:
+        say(f"Distributed runtime: {process_count()} processes")
+    cfg = apply_overrides(cfg, [f"seed={set_seed(sync_seed(cfg.seed))}"])
+    check_supported(cfg)
+    mesh = create_mesh(cfg.mesh.data_axis, cfg.mesh.model_axis, cfg.mesh.spatial_axis,
+                       devices=None if distributed else [args.device])
+    trainer = Trainer(cfg, device=args.device, mesh=mesh)
     train_loader, val_loader, test_loader = build_loaders(cfg, trainer.device)
     state = trainer.init_state(steps_per_epoch=max(len(train_loader), 1))
     state.model.load_state_dict(read_checkpoint(args.checkpoint, cfg.model.name), strict=True)
     model = state.model
 
-    print("== original ==")
+    say("== original ==")
     m0 = trainer.evaluate(state, test_loader)
-    print({k: round(v, 4) for k, v in m0.items()})
+    say({k: round(v, 4) for k, v in m0.items()})
 
     # Physical removal needs masks that zero the whole channel (kernel and
     # bias, and the BN affine for the EELUnet) so slicing is exact; the
@@ -89,28 +118,28 @@ def main(argv=None):
         masks, _report = compute_prune_masks(model, args.prune_amount, zero_bias=args.physical,
                                              round_to=args.prune_round_to)
     apply_masks(model, masks)
-    print(f"== pruned (amount={args.prune_amount}) ==")
+    say(f"== pruned (amount={args.prune_amount}) ==")
     for name, frac in sparsity_report(model).items():
-        print(f"  {name}: {frac:.1%} zero")
-    print(f"global sparsity: {global_sparsity(model):.1%}")
+        say(f"  {name}: {frac:.1%} zero")
+    say(f"global sparsity: {global_sparsity(model):.1%}")
     m1 = trainer.evaluate(state, test_loader)
-    print({k: round(v, 4) for k, v in m1.items()})
+    say({k: round(v, 4) for k, v in m1.items()})
 
     state = finetune_pruned(trainer, state, masks, train_loader, val_loader,
-                            epochs=args.finetune_epochs)
-    print("== finetuned ==")
+                            epochs=args.finetune_epochs, log=say)
+    say("== finetuned ==")
     m2 = trainer.evaluate(state, test_loader)
-    print({k: round(v, 4) for k, v in m2.items()})
+    say({k: round(v, 4) for k, v in m2.items()})
 
-    print("\nmetric          original   pruned  finetuned")
+    say("\nmetric          original   pruned  finetuned")
     for k in ("iou", "dice", "miou", "mdice", "boundary_f1"):
-        print(f"{k:14s}  {m0[k]:8.4f} {m1[k]:8.4f}  {m2[k]:8.4f}")
+        say(f"{k:14s}  {m0[k]:8.4f} {m1[k]:8.4f}  {m2[k]:8.4f}")
 
     if args.out and (os.path.isabs(args.out) or os.sep in args.out):
         path = trainer.ckpt.save_to(os.path.abspath(args.out), state)
     else:
         path = trainer.ckpt.save(args.out or f"pruned_{int(args.prune_amount * 100)}", state)
-    print(f"Saved pruned+finetuned checkpoint to {path}")
+    say(f"Saved pruned+finetuned checkpoint to {path}")
 
     if args.physical:
         from eelunet_tpu_torch.prune_physical import (
@@ -131,14 +160,16 @@ def main(argv=None):
         slim.load_state_dict(slim_sd, strict=True)
         slim = slim.to(trainer.device, memory_format=torch.channels_last)
         n0, n1 = param_count(model), param_count(slim)
-        print(f"== physical ==\nparams: {n0 / 1e6:.2f}M -> {n1 / 1e6:.2f}M ({n1 / n0:.1%})")
+        say(f"== physical ==\nparams: {n0 / 1e6:.2f}M -> {n1 / 1e6:.2f}M ({n1 / n0:.1%})")
         # the eval step reads nothing of a train state but its model
         m3 = trainer.evaluate(types.SimpleNamespace(model=slim), test_loader)
-        print({k: round(v, 4) for k, v in m3.items()})
-        print("slim metrics: " + json.dumps(m3))
-        slim_path = save_slim(path + "_slim", slim_sd, widths, model_name=mc.name)
-        print(f"Saved slim checkpoint to {slim_path}")
-    print("kernel launches: " + json.dumps(kernel_launches()), flush=True)
+        say({k: round(v, 4) for k, v in m3.items()})
+        say("slim metrics: " + json.dumps(m3))
+        if is_primary():
+            slim_path = save_slim(path + "_slim", slim_sd, widths, model_name=mc.name)
+            say(f"Saved slim checkpoint to {slim_path}")
+    say("kernel launches: " + json.dumps(kernel_launches()), flush=True)
+    shutdown_distributed()
 
 
 if __name__ == "__main__":

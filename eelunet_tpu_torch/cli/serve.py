@@ -117,15 +117,14 @@ def main(argv=None):
         from eelunet_tpu_torch.export import ExportedModel, read_meta
         from eelunet_tpu_torch.registry import resolve_device
 
-        # The programs run on the device they were exported for; serve one
-        # only where this call asks for that device.
+        # The programs of the device this call asks for, and no other.
         device = resolve_device(args.device)
-        exported_for = read_meta(args.artifact)["platforms"][0]
-        if exported_for != device.type:
-            p.error(f"{args.artifact} was exported for {exported_for!r}; this call asks for "
-                    f"--device {args.device!r}: re-export it there or pass --device "
-                    f"{exported_for}")
-        predictor = ExportedModel(args.artifact)
+        platforms = read_meta(args.artifact)["platforms"]
+        if device.type not in platforms:
+            p.error(f"{args.artifact} was exported for {', '.join(map(repr, platforms))}; "
+                    f"this call asks for --device {args.device!r}: re-export it with "
+                    f"--platforms {device.type} or pass --device {platforms[0]}")
+        predictor = ExportedModel(args.artifact, device=device)
         name = predictor.meta["model"]
         image_size = tuple(predictor.meta["image_size"])
         device, dtype = predictor.device, "exported"

@@ -44,6 +44,10 @@ def main(argv=None):
     p.add_argument("--lambda_edge", type=float, default=None)
     p.add_argument("--resume", type=str, default=None,
                    help="full snapshot to resume from ('auto' = the newest)")
+    p.add_argument("--summary", action="store_true",
+                   help="print a per-layer shape/param table at startup (the reference "
+                   "always runs torchsummary.summary, train.py:291); built on the meta "
+                   "device, so no forward runs on the card")
     args = p.parse_args(argv)
 
     ov = []
@@ -89,6 +93,11 @@ def main(argv=None):
                        devices=devices)
     say(f"Mesh: {mesh.shape} over {mesh.devices.size} device(s)")
     trainer = Trainer(cfg, device=args.device, mesh=mesh)
+    if args.summary:
+        from eelunet_tpu_torch.utils.summary import model_summary
+
+        h, w = cfg.data.image_size
+        say(model_summary(trainer.model, (1, trainer.cfg.model.in_channels, h, w)))
     train_loader, val_loader, test_loader = build_loaders(cfg, device=args.device)
     say(f"Device: {trainer.device}; criterion: {trainer.loss_name}; "
         f"{len(train_loader)} steps per epoch", flush=True)

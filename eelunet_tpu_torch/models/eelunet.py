@@ -123,8 +123,9 @@ def high_pass_fft(x: torch.Tensor, mask_range: int = 20, impl: str = "auto") -> 
         return high_pass_fft_cuda(x.contiguous(), mask_range)
     if impl == "lowrank":
         from eelunet_tpu_torch.ops.fft import high_pass_fft_lowrank
+        from eelunet_tpu_torch.ops.fft_cuda import autocast_off
 
-        with torch.autocast(x.device.type, enabled=False):
+        with autocast_off(x.device.type):
             return high_pass_fft_lowrank(x, mask_range)
     raise ValueError(f"unknown highpass_impl {impl!r} (choices: {HIGHPASS_IMPLS})")
 

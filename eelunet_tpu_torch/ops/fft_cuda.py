@@ -50,12 +50,14 @@ the kernels' registers.
 S_i) as the JAX VJP does (``fft_pallas.py:664-671``).
 
 Each wrapper launches its kernel on a CUDA tensor and counts the launch in
-``LAUNCHES``; on a CPU tensor it runs its plain twin (``*_plain``) instead. A
-CUDA tensor never takes the plain twin.
+``LAUNCHES``; on a CPU tensor it runs its plain twin (``*_plain``) instead,
+and on a meta tensor too (shapes only: FLOP counting and the model summary,
+``utils/``). A CUDA tensor never takes the plain twin.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from collections import OrderedDict
 from functools import lru_cache
@@ -69,10 +71,19 @@ from eelunet_tpu_torch.ops.fft import _EPS, _axis_factors
 SUPPORTED_K = (16, 32, 48, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+_PLAIN = ("cpu", "meta")  # the devices whose tensors take the plain twins
 # Kernel launches per wrapper since the last reset (plain-twin calls are not
 # launches). A run reads them to show that its path went through the kernels.
 LAUNCHES: Dict[str, int] = {"highpass_contract": 0, "highpass_expand": 0,
                             "highpass_bwd_contract": 0, "highpass_bwd_expand": 0}
+
+
+def autocast_off(device_type: str):
+    """An autocast region switched off; nothing on the meta device, which
+    has no autocast state."""
+    if device_type == "meta":
+        return contextlib.nullcontext()
+    return torch.autocast(device_type, enabled=False)
 
 
 def reset_launches() -> None:
@@ -290,7 +301,7 @@ def _raise_on(name: str, err: int) -> None:
 def highpass_contract(x3: torch.Tensor, vr_t: torch.Tensor, vi_t: torch.Tensor):
     """T = V_H x. x3 (B,H,WC) f32/bf16; vr_t, vi_t (H,K) in x3's dtype.
     Returns (T_r, T_i), each (B,K,WC) float32."""
-    if x3.device.type == "cpu":
+    if x3.device.type in _PLAIN:
         return highpass_contract_plain(x3, vr_t, vi_t)
     b, h, wc = x3.shape
     k = vr_t.shape[1]
@@ -313,7 +324,7 @@ def highpass_expand(x3: torch.Tensor, ur: torch.Tensor, ui: torch.Tensor,
                     sr: torch.Tensor, si: torch.Tensor) -> torch.Tensor:
     """|x - U_H S| with the 1e-24 floor. x3 (B,H,WC) f32/bf16; ur, ui (H,K)
     f32; sr, si (B,K,WC) f32. Returns (B,H,WC) in x3's dtype."""
-    if x3.device.type == "cpu":
+    if x3.device.type in _PLAIN:
         return highpass_expand_plain(x3, ur, ui, sr, si)
     b, h, wc = x3.shape
     k = ur.shape[1]
@@ -340,7 +351,7 @@ def highpass_bwd_contract(x3: torch.Tensor, g3: torch.Tensor, ur: torch.Tensor,
     if g3.shape != x3.shape or g3.dtype != x3.dtype or g3.device != x3.device:
         raise ValueError(f"{name}: g {tuple(g3.shape)} {g3.dtype} on {g3.device} does not "
                          f"match x {tuple(x3.shape)} {x3.dtype} on {x3.device}")
-    if x3.device.type == "cpu":
+    if x3.device.type in _PLAIN:
         return highpass_bwd_contract_plain(x3, g3, ur, ui, sr, si)
     b, h, wc = x3.shape
     k = ur.shape[1]
@@ -367,7 +378,7 @@ def highpass_bwd_expand(u_re: torch.Tensor, vr_t: torch.Tensor, vi_t: torch.Tens
                         rr: torch.Tensor, ri: torch.Tensor) -> torch.Tensor:
     """Kernel 4. u_re (B,H,WC) f32/bf16 (x's dtype); vr_t, vi_t (H,K) f32;
     rr, ri (B,K,WC) f32. Returns dx (B,H,WC) in u_re's dtype."""
-    if u_re.device.type == "cpu":
+    if u_re.device.type in _PLAIN:
         return highpass_bwd_expand_plain(u_re, vr_t, vi_t, rr, ri)
     name = "highpass_bwd_expand"
     b, h, wc = u_re.shape
@@ -435,7 +446,7 @@ class HighPassFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, mask_range: int) -> torch.Tensor:
-        with torch.autocast(x.device.type, enabled=False):
+        with autocast_off(x.device.type):
             out, s_r, s_i = highpass_fwd(x, mask_range)
         ctx.mask_range = mask_range
         ctx.save_for_backward(x, s_r, s_i)
@@ -444,7 +455,7 @@ class HighPassFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         x, s_r, s_i = ctx.saved_tensors
-        with torch.autocast(x.device.type, enabled=False):
+        with autocast_off(x.device.type):
             return highpass_bwd(x, s_r, s_i, g.contiguous(), ctx.mask_range), None
 
 
@@ -454,5 +465,5 @@ def high_pass_fft_cuda(x: torch.Tensor, mask_range: int = 20) -> torch.Tensor:
     enabled and x requiring it, the call goes through ``HighPassFunction``."""
     if torch.is_grad_enabled() and x.requires_grad:
         return HighPassFunction.apply(x, mask_range)
-    with torch.autocast(x.device.type, enabled=False):
+    with autocast_off(x.device.type):
         return highpass_fwd(x, mask_range)[0]

@@ -25,7 +25,7 @@ import torch
 AXES = ("data", "model", "spatial")
 NOT_PORTED_AXES = ("mesh.model_axis > 1 (tensor parallelism) and mesh.spatial_axis > 1 "
                    "(H-sharding) are not ported to eelunet_tpu_torch yet: they are the next "
-                   "slice of the port, ROADMAP.md §1 item 1")
+                   "slice of the port (ROADMAP.md §1, 'The model and spatial mesh axes')")
 
 
 class Mesh:

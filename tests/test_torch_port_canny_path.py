@@ -35,6 +35,7 @@ from torch_port_helpers import (
     MASK_RANGE,
     STEPS,
     narrow_flax_variables,
+    once_per_run,
     paired_train_steps,
 )
 
@@ -130,13 +131,13 @@ def _paired(float64):
 
 
 @pytest.fixture(scope="module")
-def canny_run():
-    return _paired(float64=False)
+def canny_run(tmp_path_factory):
+    return once_per_run(tmp_path_factory, "canny_paired", lambda _: _paired(float64=False))
 
 
 @pytest.fixture(scope="module")
-def canny_run64():
-    return _paired(float64=True)
+def canny_run64(tmp_path_factory):
+    return once_per_run(tmp_path_factory, "canny_paired64", lambda _: _paired(float64=True))
 
 
 def _rel(a, b):

@@ -20,6 +20,7 @@ from __future__ import annotations
 import json
 import os
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -45,7 +46,7 @@ from eelunet_tpu_torch.registry import MODEL_REGISTRY, create_model
 from eelunet_tpu_torch.train.trainer import Trainer, forward_loss, make_loss_fn
 from torch_port_ddp_worker import spawn
 from torch_port_families import UNET_NARROW, family_variables
-from torch_port_helpers import MASK_RANGE, NARROW
+from torch_port_helpers import MASK_RANGE, NARROW, once_per_run
 
 # The bound tests/test_sharding.py::test_dp_training_matches_single_device
 # holds JAX's data-parallel loss trajectory to, and the bound of its
@@ -104,7 +105,12 @@ def _port_fit(sets, sd, workdir, save, train, test):
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
-    work = str(tmp_path_factory.mktemp("ddp"))
+    return once_per_run(tmp_path_factory, "ddp", _run)
+
+
+def _run(work: str):
+    """The 2-rank spawn (in a thread) and, here, JAX's fit and the port's
+    single-process fits."""
     variables = family_variables("unext_s")
     train = list(SyntheticDataset(n=16, image_size=(32, 32), seed=0).samples)
     test = list(SyntheticDataset(n=7, image_size=(32, 32), seed=1).samples)  # tail of 3
@@ -140,7 +146,7 @@ def run(tmp_path_factory):
         raise ranks["error"]
     return {"ranks": ranks["out"], "work": work, "jax_hist": jax_hist,
             "jax_metrics": jax_metrics, "flip": flip, "accum_hist": accum_hist,
-            "accum_state": accum_state}
+            "accum_state": types.SimpleNamespace(model=accum_state.model)}
 
 
 def _part(run, name):

@@ -22,6 +22,7 @@ from eelunet_tpu_torch.parallel import distributed
 from eelunet_tpu_torch.parallel.mesh import Mesh, create_mesh
 from eelunet_tpu_torch.train.trainer import choose_batch_placement
 from torch_port_ddp_worker import spawn
+from torch_port_helpers import once_per_run
 
 
 class _Index:
@@ -150,7 +151,8 @@ def test_single_process_runtime_is_a_noop(monkeypatch):
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    return spawn("runtime", str(tmp_path_factory.mktemp("runtime")), timeout=180)
+    return once_per_run(tmp_path_factory, "runtime",
+                        lambda work: spawn("runtime", work, timeout=180))
 
 
 def test_process_group_runtime(ranks):

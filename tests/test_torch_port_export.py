@@ -13,6 +13,7 @@ import dataclasses
 import io
 import json
 import os
+import pathlib
 import shutil
 import socket
 import subprocess
@@ -27,7 +28,7 @@ from eelunet_tpu_torch.cli import export as export_cli
 from eelunet_tpu_torch.export import ExportedModel, export_model
 from eelunet_tpu_torch.inference import Predictor
 from eelunet_tpu_torch.prune_physical import save_slim
-from torch_port_helpers import CFG, MASK_RANGE, NARROW, narrow_flax_variables
+from torch_port_helpers import CFG, MASK_RANGE, NARROW, narrow_flax_variables, once_per_run
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HW = 32
@@ -48,15 +49,19 @@ def _u8(n, seed=0):
 
 @pytest.fixture(scope="module")
 def artifact(tmp_path_factory):
+    return once_per_run(tmp_path_factory, "export", _artifact)
+
+
+def _artifact(root: str):
     """``cli.export`` of the slim checkpoint at buckets 2 and 4 on the CPU,
     the lowrank Predictor's answers on the same weights, then the checkpoint
     deleted: the artifact has to carry its weights."""
-    root = tmp_path_factory.mktemp("export")
+    root = pathlib.Path(root)
     ckpt = _slim_checkpoint(root / "slim")
     out = str(root / "art")
     export_cli.main(["--device", "cpu", "--model_type", "eelunet", "--checkpoint", ckpt,
                      "--image_size", str(HW), "--set", f"model.fft_mask_range={MASK_RANGE}",
-                     "--batch_sizes", "4,2", "--output", out])
+                     "--batch_sizes", "4,2", "--output", out, "--platforms", "cpu"])
     pred = Predictor(LOWRANK, checkpoint=ckpt, bucket_batches=False, device="cpu")
     want = {n: pred.predict_proba(_u8(n)) for n in (2, 3)}
     shutil.rmtree(ckpt)
@@ -69,7 +74,7 @@ def test_fresh_process_matches_lowrank_predictor(artifact, tmp_path):
     probe = (
         "import sys, numpy as np\n"
         "from eelunet_tpu_torch.export import ExportedModel\n"
-        f"m = ExportedModel({out!r})\n"
+        f"m = ExportedModel({out!r}, device='cpu')\n"
         f"np.save({str(tmp_path / 'out.npy')!r}, m.predict_proba(np.load({str(tmp_path / 'in.npy')!r})))\n"
         "bad = sorted(k for k in sys.modules if k.startswith(('eelunet_tpu_torch.models', "
         "'eelunet_tpu_torch.ops', 'eelunet_tpu_torch.prune', 'jax', 'eelunet_tpu.')))\n"
@@ -85,7 +90,7 @@ def test_fresh_process_matches_lowrank_predictor(artifact, tmp_path):
 
 def test_ragged_batches_pad_and_refusals(artifact):
     out, want = artifact
-    m = ExportedModel(out)
+    m = ExportedModel(out, device="cpu")
     u8 = _u8(3)
     got = m.predict_proba(u8)  # pads to the 4 bucket
     assert got.shape == (3, HW, HW, 1)
@@ -109,13 +114,13 @@ def test_meta_keys_match_jax(artifact, tmp_path):
                             str(tmp_path / "jax"), platforms=("cpu",))
     with open(os.path.join(jout, "meta.json")) as f:
         jmeta = json.load(f)
-    meta = ExportedModel(out).meta
+    meta = ExportedModel(out, device="cpu").meta
     assert sorted(meta) == sorted(jmeta)
     assert meta["model"] == "eelunet" and meta["image_size"] == [HW, HW]
     assert meta["batch_sizes"] == [2, 4] and meta["platforms"] == ["cpu"]
     assert meta["input"] == jmeta["input"] and meta["output"] == jmeta["output"]
     assert meta["quantize"] is None
-    assert sorted(os.listdir(out)) == ["b2.pt2", "b4.pt2", "meta.json"]
+    assert sorted(os.listdir(out)) == ["b2.cpu.pt2", "b4.cpu.pt2", "meta.json"]
 
 
 def test_weights_are_baked_in(artifact, tmp_path):
@@ -123,8 +128,9 @@ def test_weights_are_baked_in(artifact, tmp_path):
     weights, not an init convention."""
     out, want = artifact
     other = export_model(CFG, _slim_checkpoint(tmp_path / "slim1", seed=1), (HW, HW), (2,),
-                         str(tmp_path / "art1"), device="cpu")
-    assert not np.allclose(ExportedModel(other).predict_proba(_u8(2)), want[2], atol=1e-3)
+                         str(tmp_path / "art1"), platforms=("cpu",))
+    assert not np.allclose(ExportedModel(other, device="cpu").predict_proba(_u8(2)), want[2],
+                           atol=1e-3)
 
 
 def test_int8_artifact(tmp_path):
@@ -132,12 +138,12 @@ def test_int8_artifact(tmp_path):
     int8 Predictor on the low-rank high-pass."""
     ckpt = _slim_checkpoint(tmp_path / "slim")
     out = export_model(CFG, ckpt, (HW, HW), (2,), str(tmp_path / "q"), quantize="int8",
-                       device="cpu")
+                       platforms=("cpu",))
     pred = Predictor(LOWRANK, checkpoint=ckpt, bucket_batches=False, quantize="int8",
                      device="cpu")
-    got = ExportedModel(out).predict_proba(_u8(2))
+    got = ExportedModel(out, device="cpu").predict_proba(_u8(2))
     np.testing.assert_allclose(got, pred.predict_proba(_u8(2)), atol=1e-5, rtol=0)
-    assert ExportedModel(out).meta["quantize"] == "int8"
+    assert ExportedModel(out, device="cpu").meta["quantize"] == "int8"
     assert pred.quant_stats["quantized_convs"] > 0
 
 
@@ -214,3 +220,48 @@ def test_cli_serve_artifact_runs_only_on_the_asked_device(artifact, tmp_path, ca
     else:
         with pytest.raises(RuntimeError, match="no CUDA device is available"):
             serve_cli.main(["--artifact", out])
+
+
+def test_platforms_are_checked_before_the_export(tmp_path, monkeypatch):
+    """The default ``--platforms cuda,cpu`` needs a card: torch.export traces
+    each platform's programs on its device, and a CPU-only torch cannot move
+    even a fake tensor to CUDA. Without one the export stops at once with
+    that reason and writes nothing; an unknown platform is refused."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "art"
+    with pytest.raises(RuntimeError, match="exporting for platform 'cuda' needs a CUDA card"):
+        export_cli.main(["--device", "cpu", "--model_type", "unext_s", "--image_size", str(HW),
+                         "--batch_sizes", "1", "--output", str(out)])
+    assert not out.exists()
+    with pytest.raises(ValueError, match="unknown platform 'tpu'"):
+        export_model(CFG, None, (HW, HW), (1,), str(out), platforms=("tpu", "cpu"))
+
+
+def test_older_single_platform_artifact_still_loads(artifact, tmp_path):
+    """An artifact of one platform written with ``b<N>.pt2`` names (before
+    platforms were several) loads and answers as the same programs do."""
+    out, want = artifact
+    old = tmp_path / "old"
+    shutil.copytree(out, old)
+    for b in (2, 4):
+        os.rename(old / f"b{b}.cpu.pt2", old / f"b{b}.pt2")
+    m = ExportedModel(str(old), device="cpu")
+    np.testing.assert_allclose(m.predict_proba(_u8(3)), want[3], atol=1e-5, rtol=0)
+
+
+def test_a_device_the_artifact_lacks_is_refused(artifact, tmp_path):
+    """``ExportedModel`` runs the programs of the device it is given and no
+    other: an artifact with only CUDA programs is refused on the CPU, and
+    the refusal names both."""
+    out, _ = artifact
+    forged = tmp_path / "art_cuda"
+    os.makedirs(forged)
+    meta = json.load(open(os.path.join(out, "meta.json")))
+    meta["platforms"] = ["cuda"]
+    json.dump(meta, open(forged / "meta.json", "w"))
+    for b in (2, 4):
+        shutil.copy(os.path.join(out, f"b{b}.cpu.pt2"), forged / f"b{b}.cuda.pt2")
+    with pytest.raises(ValueError, match=r"holds programs for 'cuda', not for device 'cpu'"):
+        ExportedModel(str(forged), device="cpu")

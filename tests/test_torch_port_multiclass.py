@@ -22,7 +22,7 @@ from eelunet_tpu_torch import losses, metrics
 from eelunet_tpu_torch.config import DataConfig, LossConfig, ModelConfig
 from eelunet_tpu_torch.data.augment import make_input_preprocess
 from eelunet_tpu_torch.registry import MODEL_REGISTRY, create_model, seg_probabilities
-from torch_port_helpers import CFG, LR, narrow_flax_variables, paired_train_steps
+from torch_port_helpers import CFG, LR, narrow_flax_variables, once_per_run, paired_train_steps
 
 C = 3
 B, HW = 2, 32
@@ -217,9 +217,10 @@ def _mc_batches(seed=0, n=STEPS, batch=2, size=64):
 
 
 @pytest.fixture(scope="module")
-def mc_run():
-    return paired_train_steps(narrow_flax_variables(out_channels=C), _mc_batches(), False,
-                              cfg=MC_CFG, loss_name="edge_ce_dice")
+def mc_run(tmp_path_factory):
+    return once_per_run(tmp_path_factory, "multiclass_paired", lambda _: paired_train_steps(
+        narrow_flax_variables(out_channels=C), _mc_batches(), False, cfg=MC_CFG,
+        loss_name="edge_ce_dice"))
 
 
 def test_multiclass_step_parity(mc_run):

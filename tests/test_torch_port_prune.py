@@ -52,6 +52,7 @@ from torch_port_helpers import (
     NARROW,
     edge_loss_fn,
     narrow_flax_variables,
+    once_per_run,
     port_state,
 )
 
@@ -198,7 +199,11 @@ def _full_variables(name):
 
 
 @pytest.fixture(scope="module")
-def full_slims():
+def full_slims(tmp_path_factory):
+    return once_per_run(tmp_path_factory, "full_slims", lambda _: _full_slims())
+
+
+def _full_slims():
     """JAX's and the port's slices of the same full-width weights."""
     out = {}
     for name, amount, rt in (("unet", 0.3, 64), ("eelunet", 0.5, 32)):

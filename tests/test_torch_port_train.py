@@ -28,6 +28,7 @@ from torch_port_helpers import (
     STEPS,
     edge_loss_fn,
     narrow_flax_variables,
+    once_per_run,
     paired_train_steps,
     port_state,
 )
@@ -53,13 +54,13 @@ def _paired(float64: bool):
 
 
 @pytest.fixture(scope="module")
-def paired_run():
-    return _paired(float64=False)
+def paired_run(tmp_path_factory):
+    return once_per_run(tmp_path_factory, "train_paired", lambda _: _paired(float64=False))
 
 
 @pytest.fixture(scope="module")
-def paired_run64():
-    return _paired(float64=True)
+def paired_run64(tmp_path_factory):
+    return once_per_run(tmp_path_factory, "train_paired64", lambda _: _paired(float64=True))
 
 
 # The bounds tests/test_step_parity.py holds the JAX EELUnet step to against

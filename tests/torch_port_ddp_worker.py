@@ -1,12 +1,14 @@
 """Subprocess body of the port's multi-rank tests on the CPU
-(tests/test_torch_port_distributed.py, tests/test_torch_port_ddp.py).
+(tests/test_torch_port_distributed.py, tests/test_torch_port_ddp.py,
+tests/test_torch_port_prune_ddp.py).
 
 ``spawn`` starts ``world`` copies of this file, one per rank, as
 tests/_distributed_worker.py does for the JAX package. The ranks join one
 gloo group through ``init_method=file://`` under the test's directory (no
 TCP port, so parallel test workers cannot collide), run one scenario with
 one thread each, and write their results as JSON. Each subprocess streams
-its output to ``rank<r>.log`` there and has its own timeout. This file
+its output to ``rank<r>.log`` there and has its own timeout, shortly before
+which a rank still running writes every thread's stack to its log. This file
 imports torch and the port only: the parent test brings what it needs from
 the JAX package in ``inputs.pt``.
 """
@@ -14,6 +16,7 @@ the JAX package in ``inputs.pt``.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import io
 import json
 import os
@@ -36,7 +39,8 @@ def spawn(scenario: str, workdir: str, world: int = 2, timeout: float = 240.0):
         log = open(os.path.join(workdir, f"rank{rank}.log"), "w")
         procs.append((subprocess.Popen(
             [sys.executable, "-u", os.path.abspath(__file__), scenario, str(rank), str(world),
-             workdir, init], stdout=log, stderr=subprocess.STDOUT, env=env, cwd=workdir), log))
+             workdir, init, str(timeout)], stdout=log, stderr=subprocess.STDOUT, env=env,
+            cwd=workdir), log))
     deadline = time.monotonic() + timeout
     failures = []
     try:
@@ -225,12 +229,74 @@ def ddp(rank: int, world: int, workdir: str):
     return out
 
 
-SCENARIOS = {"runtime": runtime, "ddp": ddp}
+def prune(rank: int, world: int, workdir: str):
+    """``cli.prune`` on the ranks, once per entry of ``runs`` in the inputs
+    of test_torch_port_prune_ddp.py: its stdout, every metric row it
+    evaluates (unrounded), the files each rank moved into place or wrote as
+    a slim checkpoint, and the finetuned parameters (``params<rank>_<label>.pt``)."""
+    import torch
+
+    import eelunet_tpu_torch.train.trainer as T
+    from eelunet_tpu_torch import prune_physical
+    from eelunet_tpu_torch.cli import prune as prune_cli
+    from eelunet_tpu_torch.parallel import distributed
+    from eelunet_tpu_torch.train import checkpoint
+
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    out = {}
+    for label, argv, widths in inp["runs"]:
+        rec = {"evals": [], "writes": [], "slims": []}
+        originals = (T.create_model, T.Trainer.evaluate, prune_cli.finetune_pruned,
+                     checkpoint.os.replace, prune_physical.save_slim,
+                     distributed.shutdown_distributed)
+
+        def evaluate(self, *a, **k):
+            m = originals[1](self, *a, **k)
+            rec["evals"].append(m)
+            return m
+
+        def finetune(*a, **k):
+            state = originals[2](*a, **k)
+            torch.save({k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+                       os.path.join(workdir, f"params{rank}_{label}.pt"))
+            return state
+
+        def replace(src, dst):
+            rec["writes"].append(os.path.relpath(dst, workdir))
+            return originals[3](src, dst)
+
+        def save_slim(path, *a, **k):
+            rec["slims"].append(os.path.relpath(path, workdir))
+            return originals[4](path, *a, **k)
+
+        if widths is not None:
+            T.create_model = lambda cfg, **kw: originals[0](
+                cfg, **({**kw, "widths": widths} if kw.get("widths") is None else kw))
+        T.Trainer.evaluate, prune_cli.finetune_pruned = evaluate, finetune
+        checkpoint.os.replace, prune_physical.save_slim = replace, save_slim
+        # the group outlives each run: main() leaves it to the worker
+        distributed.shutdown_distributed = lambda: None
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                prune_cli.main(argv)
+        finally:
+            (T.create_model, T.Trainer.evaluate, prune_cli.finetune_pruned,
+             checkpoint.os.replace, prune_physical.save_slim,
+             distributed.shutdown_distributed) = originals
+        rec["stdout"] = buf.getvalue()
+        out[label] = rec
+    return out
+
+
+SCENARIOS = {"runtime": runtime, "ddp": ddp, "prune": prune}
 
 
 def main() -> None:
-    scenario, rank, world, workdir, init = sys.argv[1:6]
+    scenario, rank, world, workdir, init, timeout = sys.argv[1:7]
     rank, world = int(rank), int(world)
+    # a rank that outlives its timeout leaves every thread's stack in its log
+    faulthandler.dump_traceback_later(max(float(timeout) - 15.0, 1.0))
     sys.path.insert(0, REPO)
     import torch
 

@@ -5,6 +5,10 @@ paired train steps of the two packages from the same weights."""
 from __future__ import annotations
 
 import dataclasses
+import fcntl
+import os
+import traceback
+import types
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +31,17 @@ from eelunet_tpu_torch.ops import fft_cuda
 from eelunet_tpu_torch.registry import MODEL_REGISTRY, create_model
 from eelunet_tpu_torch.train.state import TrainState, build_optimizer
 from eelunet_tpu_torch.train.trainer import make_loss_fn, make_train_step
+
+# Under pytest-xdist the workers share the host's cores. torch sizes its
+# OpenMP pool to the whole host in each of them, and oversubscribed OpenMP
+# threads spin at every barrier: six workers of 8 threads on 8 cores ran a
+# small model's steps about 100x slower than with one thread each. So each
+# worker, and each process it starts, takes its share of the cores.
+_XDIST_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _XDIST_WORKERS > 1:
+    _SHARE = max(1, len(os.sched_getaffinity(0)) // _XDIST_WORKERS)
+    torch.set_num_threads(_SHARE)
+    os.environ.setdefault("OMP_NUM_THREADS", str(_SHARE))
 
 # Channel widths of the narrow test model (the JAX EELUnet's ``widths`` groups).
 NARROW = tuple(sorted({
@@ -154,6 +169,9 @@ def paired_train_steps(variables, batches, float64: bool, cfg=CFG,
         if i == 0:
             grad_t = {k: p.grad.clone() for k, p in pstate.model.named_parameters()}
     grad_j = {k: mu1[k].to(tdt) / 0.1 - wd * init[k] for k in grad_t}
+    # the model and step count of the port's state (its schedule does not
+    # pickle, and once_per_run caches the result)
+    pstate = types.SimpleNamespace(model=pstate.model, step=pstate.step)
     return {"loss_j": np.array(loss_j), "loss_t": np.array(loss_t), "want": want,
             "pstate": pstate, "init": init, "grad_j": grad_j, "grad_t": grad_t}
 
@@ -374,3 +392,32 @@ def serpentine(h: int, w: int, pitch: int = 4) -> np.ndarray:
             m[r:rows[k + 1] + 1, c] = 0.5
     m[rows[0], 1] = 1.0
     return m[None, :, :, None]
+
+
+def once_per_run(tmp_path_factory, name: str, make):
+    """``make(workdir)``, computed once per test run however many xdist
+    workers ask for it (pytest-xdist's "execute once" pattern): a
+    ``scope="module"`` fixture runs again on every worker that receives a
+    test of its file under ``--dist load``. The first worker computes it
+    under an exclusive ``fcntl.flock`` on a file in the directory that the
+    workers' temp dirs share, and caches the result there (``torch.save``;
+    a failure is cached as its traceback); the others wait on the lock and
+    load it. Without xdist it is ``make`` in a fresh temp dir."""
+    if os.environ.get("PYTEST_XDIST_WORKER") is None:
+        return make(str(tmp_path_factory.mktemp(name)))
+    root = tmp_path_factory.getbasetemp().parent
+    cache = root / f"{name}.pt"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not cache.exists():
+            work = root / name
+            work.mkdir(exist_ok=True)
+            try:
+                out = {"result": make(str(work))}
+            except Exception:
+                out = {"error": traceback.format_exc()}
+            torch.save(out, cache)
+        out = torch.load(cache, weights_only=False)
+    if "error" in out:
+        raise RuntimeError(f"{name} failed (computed once for the run):\n{out['error']}")
+    return out["result"]
